@@ -12,13 +12,16 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from layerskip_tpu_torch.config import ModelConfig
-from layerskip_tpu_torch.ops.kv_cache import KVCache
+from layerskip_tpu_torch.ops.kv_cache import KVCache, QuantKV
 
 
 def _mk_group_cache(cfg: ModelConfig, nlayers: int, b: int, max_len: int,
-                    device) -> KVCache:
-    """Preallocated contiguous KV for a layer group, in ``cfg.dtype``."""
+                    device, kv_quant: bool = False) -> KVCache:
+    """Preallocated contiguous KV for a layer group, in ``cfg.dtype`` or, with
+    ``kv_quant``, int8 with per-(token, head) bf16 scales."""
     shape = (nlayers, b, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    if kv_quant:
+        return KVCache(k=QuantKV.zeros(shape, device), v=QuantKV.zeros(shape, device))
     return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=device))
 

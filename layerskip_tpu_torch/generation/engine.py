@@ -8,7 +8,10 @@ loops run on the host with one device sync per step (AR) or per round
 ``done`` flag, and the host drops the committed tokens from the first EOS on
 (``postprocess_batch``).
 
-Stepped mode, streaming and continuous batching belong to later slices.
+Weight-quantized bases (quant.quantize_llama_params), quantized drafters
+(``GenerationConfig.draft_quant``) and the int8 KV cache (``kv_quant``) run
+through the same entry point. Stepped mode, streaming and continuous
+batching belong to later slices.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from layerskip_tpu_torch.generation.sampling import (
 from layerskip_tpu_torch.generation.spec import spec_generate
 from layerskip_tpu_torch.models import llama
 from layerskip_tpu_torch.models.llama import LlamaParams
+from layerskip_tpu_torch.ops.linear import QuantTensor
+from layerskip_tpu_torch.quant import _MLP_FIELDS, _QUANT_FIELDS, quantize_draft_params
 
 
 def ar_generate(
@@ -55,13 +60,12 @@ def ar_generate(
     kv_quant: bool = False,
 ) -> GenerateOutput:
     """Whole AR generation: prefill (shared past 0, so the flash-prefill
-    kernel runs), then one token per step for every row not yet done."""
-    if kv_quant:
-        raise NotImplementedError("int8 KV is not ported yet")
+    kernel runs), then one token per step for every row not yet done.
+    ``kv_quant`` keeps the KV cache in int8."""
     b, p = ids.shape
     dev = ids.device
     nlayers = exit_layer if exit_layer > 0 else cfg.num_hidden_layers
-    cache = _mk_group_cache(cfg, nlayers, b, max_cache_len, dev)
+    cache = _mk_group_cache(cfg, nlayers, b, max_cache_len, dev, kv_quant)
 
     def ban(logits, hist, hist_len):
         if ngram <= 0:
@@ -115,8 +119,50 @@ class Engine:
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params on {params.embed.device}, engine on {self.device}")
         llama.check_supported(cfg)
+        # quantized draft-layer-group copies keyed (exit_layer, bits, head,
+        # mlp_only), built once per engine; declared before ``params``, whose
+        # setter clears it
+        self._draft_cache: dict = {}
         self.params = params
         self.cfg = cfg
+
+    @property
+    def params(self) -> LlamaParams:
+        return self._params
+
+    @params.setter
+    def params(self, value: LlamaParams) -> None:
+        # new weights must drop the drafters quantized from the old ones
+        self._params = value
+        self._draft_cache.clear()
+
+    def _resolve_draft_quant(self, gen_cfg: GenerationConfig, strategy: str,
+                             tree_width: int) -> Tuple[int, bool, bool]:
+        """Effective ``(bits, quantize_head, mlp_only)`` for this request:
+        only early-exit drafting drafts from a separate copy, and a base that
+        is already quantized drafts cheaply as it is. The head and MLP-only
+        knobs are False whenever bits resolves to 0."""
+        bits = int(gen_cfg.draft_quant or 0)
+        if strategy != "self_speculative" or tree_width > 1 \
+                or isinstance(self.params.layers.wq, QuantTensor):
+            bits = 0
+        on = bool(bits)
+        return (bits, on and bool(gen_cfg.draft_quant_head),
+                on and bool(gen_cfg.draft_quant_mlp_only))
+
+    def _draft_params(self, exit_layer: int, bits: int, head: bool = False,
+                      mlp_only: bool = False) -> LlamaParams:
+        """Quantized copy of layers [0, exit_layer) for cheap drafting
+        (``GenerationConfig.draft_quant``, group 128 for int4). ``head`` also
+        quantizes the drafter's head (``draft_quant_head``); ``mlp_only``
+        quantizes only the MLP triple (``draft_quant_mlp_only``)."""
+        key = (exit_layer, bits, head, mlp_only)
+        if key not in self._draft_cache:
+            self._draft_cache[key] = quantize_draft_params(
+                self.params, exit_layer, bits=bits, group=0 if bits == 8 else 128,
+                quantize_head=head, fields=_MLP_FIELDS if mlp_only else _QUANT_FIELDS,
+            )
+        return self._draft_cache[key]
 
     def generate(
         self,
@@ -139,12 +185,9 @@ class Engine:
             raise NotImplementedError(f"strategy {strategy!r} is not ported yet")
         if strategy not in ("autoregressive", "self_speculative"):
             raise ValueError(f"unknown strategy: {strategy}")
-        for on, what in ((gen_cfg.kv_quant, "int8 KV"),
-                         (gen_cfg.draft_exit_prob, "adaptive drafting"),
-                         (strategy == "self_speculative" and (gen_cfg.spec_tree_width or 0) > 1,
-                          "tree speculation"),
-                         (strategy == "self_speculative" and gen_cfg.draft_quant,
-                          "quantized drafters")):
+        tree_width = int(gen_cfg.spec_tree_width or 0) if strategy == "self_speculative" else 0
+        for on, what in ((gen_cfg.draft_exit_prob, "adaptive drafting"),
+                         (tree_width > 1, "tree speculation")):
             if on:
                 raise NotImplementedError(f"{what} is not ported yet")
         exit_layer = gen_cfg.exit_layer
@@ -168,13 +211,17 @@ class Engine:
         true_len = torch.as_tensor(true_lens, dtype=torch.long, device=self.device)
         common = dict(max_steps=max_steps, exit_layer=exit_layer, scfg=scfg,
                       eos_ids=eos, max_cache_len=max_cache_len,
-                      ngram=int(gen_cfg.no_repeat_ngram_size or 0))
+                      ngram=int(gen_cfg.no_repeat_ngram_size or 0),
+                      kv_quant=bool(gen_cfg.kv_quant))
         with torch.inference_mode():
             if strategy == "autoregressive":
                 return ar_generate(self.params, self.cfg, ids, true_len, generator,
                                    **common)
+            bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
+            draft = self._draft_params(exit_layer, bits, dq_head, dq_mlp) if bits else None
             return spec_generate(self.params, self.cfg, ids, true_len, generator,
-                                 num_speculations=num_speculations, **common)
+                                 num_speculations=num_speculations, draft_params=draft,
+                                 **common)
 
 
 def _pad_prompts(prompt_ids, fixed_bucket=None):

@@ -3,8 +3,11 @@
 Prompt prefill, the draft+verify round with static-W early-exit drafting,
 rejection-sampling acceptance, and the whole-generation loop. The loop is a
 Python ``while`` with one host sync per round (``done.all()``) where the JAX
-package runs ``lax.while_loop``. Prompt-lookup, hybrid and adaptive drafting,
-tree speculation and quantized drafters belong to later slices and raise.
+package runs ``lax.while_loop``. A quantized drafter (``draft_params``)
+drafts from its own weights and the verify re-runs the window through the
+base stack; the int8 KV cache (``kv_quant``) runs in every round.
+Prompt-lookup, hybrid and adaptive drafting and tree speculation belong to
+later slices and raise.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ def _spec_prefill(
     eos_ids: Tuple[int, ...],
     max_cache_len: int,
     ngram: int = 0,
+    kv_quant: bool = False,
 ) -> _SpecState:
     """Prompt prefill through all layers (one shared past of 0, so the
     flash-prefill kernel runs) -> the initial speculation state."""
@@ -55,8 +59,8 @@ def _spec_prefill(
     dev = ids.device
     res = llama.forward_split(
         params, cfg, ids,
-        _mk_group_cache(cfg, e, b, max_cache_len, dev),
-        _mk_group_cache(cfg, nl - e, b, max_cache_len, dev),
+        _mk_group_cache(cfg, e, b, max_cache_len, dev, kv_quant),
+        _mk_group_cache(cfg, nl - e, b, max_cache_len, dev, kv_quant),
         0, e, last_pos=true_len - 1,
     )
     last_logits = res.logits[:, 0]  # [B, V]
@@ -110,23 +114,22 @@ def spec_generate(
 ) -> GenerateOutput:
     """Whole self-speculative generation: prefill, then draft+verify rounds
     until every row is done."""
-    for on, what in ((kv_quant, "int8 KV"), (draft_exit_prob > 0, "adaptive drafting"),
+    for on, what in ((draft_exit_prob > 0, "adaptive drafting"),
                      (pld_ngram > 0 or hybrid, "prompt-lookup drafting"),
-                     (tree_width > 1, "tree speculation"),
-                     (draft_params is not None, "quantized drafters")):
+                     (tree_width > 1, "tree speculation")):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
     state = _spec_prefill(
         params, cfg, ids, true_len, generator,
         max_steps=max_steps, exit_layer=exit_layer,
         num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
-        max_cache_len=max_cache_len, ngram=ngram,
+        max_cache_len=max_cache_len, ngram=ngram, kv_quant=kv_quant,
     )
     while not bool(state.done.all()):
         state = _spec_round(
             params, cfg, state, generator, exit_layer=exit_layer,
             num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
-            ngram=ngram,
+            ngram=ngram, draft_params=draft_params,
         )
     return GenerateOutput(
         tokens=state.out,
@@ -147,9 +150,18 @@ def _spec_round(
     scfg: SamplingConfig,
     eos_ids: Tuple[int, ...],
     ngram: int = 0,
+    draft_params: Optional[LlamaParams] = None,
 ) -> _SpecState:
     """One draft+verify round: each active row commits its accepted drafts
-    plus one extra token. The state's caches are updated in place."""
+    plus one extra token. The state's caches are updated in place.
+
+    With ``draft_params`` (a quantized copy of layers [0, E), see
+    quant.quantize_draft_params) the drafts read the cheap weights, but the
+    verify must not reuse their exit hiddens: it re-runs
+    ``[next_tok, drafts]`` through the full base stack (``forward_split``
+    from ``s.ctx``), so committed tokens are judged by the base model and
+    greedy output equals base AR. That pass rewrites the early KV the
+    drafts wrote at positions ``ctx .. ctx + W - 1``."""
     b = s.next_tok.shape[0]
     e, w = exit_layer, num_speculations
     dev = s.next_tok.device
@@ -161,10 +173,11 @@ def _spec_round(
         return apply_ban(logits, no_repeat_ngram_banned(hist, hist_len, ngram, cfg.vocab_size))
 
     # ---- draft: W early-exit steps ----
+    dparams = params if draft_params is None else draft_params
     early, tok, hist = s.early, s.next_tok, s.hist
     d_toks, d_probs, exit_h = [], [], []
     for i in range(w):
-        r = llama.forward_early(params, cfg, tok, early, s.ctx + i, e)
+        r = llama.forward_early(dparams, cfg, tok, early, s.ctx + i, e)
         logits = ban(r.logits[:, -1], hist, hist_len0 + i)
         probs = token_distribution(logits, scfg)  # [B, V]
         d_tok = draw(probs, generator, scfg)  # [B]
@@ -177,11 +190,18 @@ def _spec_round(
     p_draft = torch.stack(d_probs, dim=1)  # [B, W, V]
     w_dyn = torch.full((b,), w, dtype=torch.long, device=dev)
 
-    # ---- verify: the stitched window through the remaining layers ----
-    vres = llama.forward_remainder(
-        params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
-        draft_len=s.ctx + w, full_len=s.ctx, exit_layer=e,
-    )
+    # ---- verify: the stitched window through the remaining layers, or,
+    # after a quantized draft, the whole window through the base stack ----
+    if draft_params is None:
+        vres = llama.forward_remainder(
+            params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
+            draft_len=s.ctx + w, full_len=s.ctx, exit_layer=e,
+        )
+    else:
+        vres = llama.forward_split(
+            params, cfg, torch.cat([s.next_tok, drafts], dim=1), s.early, s.full,
+            s.ctx, e,
+        )
     vlogits = vres.logits
     if ngram > 0:
         vlogits = torch.stack(

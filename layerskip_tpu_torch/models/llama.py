@@ -26,7 +26,12 @@ import torch.nn.functional as F
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.ops.attention import gqa_attention
 from layerskip_tpu_torch.ops.kv_cache import KVCache, write_kv
-from layerskip_tpu_torch.ops.linear import apply_weight, apply_weight_t, matmul_f32
+from layerskip_tpu_torch.ops.linear import (
+    QuantTensor,
+    apply_weight,
+    apply_weight_t,
+    matmul_f32,
+)
 from layerskip_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_residual
 from layerskip_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 
@@ -34,7 +39,8 @@ from layerskip_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 @dataclasses.dataclass
 class LayerParams:
     """Per-layer weights, stacked on a leading [L] axis (the JAX package's
-    storage orientation)."""
+    storage orientation). The seven matmul weights may be ``QuantTensor``s
+    (quant.py), which index per layer the same way."""
 
     attn_norm: torch.Tensor  # [L, D]
     wq: torch.Tensor  # [L, Hq*Dh, D]   ([out, in])
@@ -52,7 +58,7 @@ class LlamaParams:
     embed: torch.Tensor  # [V, D]
     layers: LayerParams
     final_norm: torch.Tensor  # [D]
-    lm_head: Optional[torch.Tensor]  # [D, V]; None => tied to embed
+    lm_head: Optional[Union[torch.Tensor, QuantTensor]]  # [D, V]; None => tied
 
 
 # family features this slice does not carry, by ModelConfig field
@@ -149,9 +155,12 @@ def run_layers(
 
 
 def lm_logits(params: LlamaParams, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Shared final norm + LM head, fp32 logits."""
+    """Shared final norm + LM head, fp32 logits. A quantized head takes the
+    fp32 hidden states (K5 or K6 at fp32)."""
     h = rms_norm(h, params.final_norm, cfg.rms_norm_eps)
     head = params.lm_head if params.lm_head is not None else params.embed.T
+    if isinstance(head, QuantTensor):
+        return apply_weight(h.float(), head)
     return matmul_f32(h, head)
 
 

@@ -25,6 +25,7 @@ import torch
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.device import resolve_device
 from layerskip_tpu_torch.models.llama import LayerParams, LlamaParams, check_supported
+from layerskip_tpu_torch.ops.linear import QuantTensor
 
 _LAYER_FIELDS = tuple(f.name for f in dataclasses.fields(LayerParams))
 
@@ -165,11 +166,20 @@ def _field(tree, name):
     return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
 
 
+def _is_quant(x) -> bool:
+    """A quantized leaf: the JAX package's ``QuantTensor`` (numpy ``q`` and
+    ``scale``), or a dict with its four fields."""
+    return (isinstance(x, Mapping) and "q" in x) or (
+        not isinstance(x, Mapping) and hasattr(x, "q") and hasattr(x, "scale"))
+
+
 def params_from_numpy(tree, device="cuda", dtype=None) -> LlamaParams:
     """The port's params from the JAX package's ``LlamaParams`` with numpy
     leaves, given as a nested dict under the same field names (or as the
-    dataclass itself). ``dtype`` None keeps each array's dtype. The JAX
-    package's optional family fields must be absent or None."""
+    dataclass itself). ``dtype`` None keeps each array's dtype; it never
+    applies to quantized leaves, which become ``QuantTensor``s with the same
+    ``q``, ``scale``, ``k_last`` and ``group``. The JAX package's optional
+    family fields must be absent or None."""
     dev = resolve_device(device)
     layers = _field(tree, "layers")
     if isinstance(layers, Mapping):
@@ -178,6 +188,11 @@ def params_from_numpy(tree, device="cuda", dtype=None) -> LlamaParams:
             raise NotImplementedError(f"layer fields {extra} are not ported yet")
 
     def conv(x):
+        if _is_quant(x):  # q and scale keep their dtypes
+            raw = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+            return QuantTensor(q=raw(_field(x, "q")), scale=raw(_field(x, "scale")),
+                               k_last=bool(_field(x, "k_last")),
+                               group=int(_field(x, "group")))
         t = torch.from_numpy(np.array(x))  # a writable copy
         return t.to(device=dev, dtype=dtype or t.dtype)
 

@@ -11,7 +11,9 @@ more than 16 queries and a head_dim the kernel takes goes to
 ``flash_prefill_attention``, which launches the CUDA kernel for CUDA tensors
 and runs its plain version for CPU tensors. Every other call (one-token
 drafts, the verify window, per-row pasts) takes the masked path below, as
-the JAX package's contiguous-cache decode does.
+the JAX package's contiguous-cache decode does. An int8 cache (``QuantKV``)
+is first dequantized to q's dtype, as the JAX package does, and then takes
+the same dispatch.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from layerskip_tpu_torch.ops.cuda.flash_prefill import (
     HEAD_DIMS,
     flash_prefill_attention,
 )
+from layerskip_tpu_torch.ops.kv_cache import QuantKV
 
 NEG_INF = -1e30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
 _MAX_SHORT_QUERY = 16  # drafts (T=1) and verify windows (T=W+1) stay masked
@@ -31,8 +34,8 @@ _MAX_SHORT_QUERY = 16  # drafts (T=1) and verify windows (T=W+1) stay masked
 
 def gqa_attention(
     q: torch.Tensor,  # [B, T, Hq, Dh] (post-RoPE)
-    k_cache: torch.Tensor,  # [B, S, Hkv, Dh] (post-RoPE, updated)
-    v_cache: torch.Tensor,  # [B, S, Hkv, Dh]
+    k_cache,  # [B, S, Hkv, Dh] tensor or QuantKV (post-RoPE, updated)
+    v_cache,  # [B, S, Hkv, Dh]
     q_positions: torch.Tensor,  # [T] or [B, T] absolute query positions
     *,
     q_heads_per_kv: int,
@@ -46,6 +49,9 @@ def gqa_attention(
     """Returns attention output [B, T, Hq, Dh] in q's dtype."""
     if tree_meta is not None:
         raise NotImplementedError("tree attention is not ported yet")
+    if isinstance(k_cache, QuantKV):
+        k_cache = k_cache.dequantize(q.dtype)
+        v_cache = v_cache.dequantize(q.dtype)
     b, t, hq, dh = q.shape
     if past_scalar is not None and t > _MAX_SHORT_QUERY and dh in HEAD_DIMS:
         return flash_prefill_attention(

@@ -1,9 +1,12 @@
 """Where the time goes in the PyTorch port's main path on one NVIDIA GPU.
 
     python3 scripts/profile_torch_spec.py [--config 7b] [--steps 128]
+        [--quantize none|int8|int4] [--draft-quant 0|8|4]
 
 Random weights of a preset shape (bf16, identity tail past the exit layer,
-as chip_smoke.py builds them), a right-sized random prompt, greedy decoding.
+as chip_smoke.py builds them), optionally quantized (``--quantize``: an int8
+or int4 base; ``--draft-quant``: a quantized drafter for the spec run), a
+right-sized random prompt, greedy decoding.
 For AR and for self-spec it prints one JSON line each with:
 
   * wall seconds and tok/s of a whole ``Engine.generate`` (host clock around
@@ -36,10 +39,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 from layerskip_tpu_torch.config import PRESETS, GenerationConfig  # noqa: E402
 from layerskip_tpu_torch.generation.engine import Engine  # noqa: E402
 from layerskip_tpu_torch.models.params import make_random_params  # noqa: E402
+from layerskip_tpu_torch.quant import quantize_llama_params  # noqa: E402
 
 # kernel name -> class, first match wins
 _CLASSES = (
     ("flash_prefill", re.compile(r"flash_prefill")),
+    ("quant_matmul", re.compile(r"qmm_")),
     ("gemm", re.compile(r"gemm|gemv|nvjet|sm90_xmma|cutlass|cublas|splitKreduce", re.I)),
     ("copy/cast", re.compile(r"copy|cast|convert|direct_copy|CatArray", re.I)),
     ("reduce", re.compile(r"reduce|softmax|argmax|max|sum|mean|cumprod|cumsum", re.I)),
@@ -98,12 +103,17 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--exit-layer", type=int, default=8)
     ap.add_argument("--spec", type=int, default=6)
+    ap.add_argument("--quantize", default="none", choices=("none", "int8", "int4"))
+    ap.add_argument("--draft-quant", type=int, default=0, choices=(0, 8, 4))
     ap.add_argument("--trace", default="", help="directory for Chrome traces")
     args = ap.parse_args()
 
     cfg = PRESETS[args.config]()
     params = make_random_params(cfg, exit_layer=args.exit_layer, tail_eps=0.0, seed=0,
                                 device="cuda")
+    if args.quantize != "none":
+        bits = int(args.quantize[3:])
+        params = quantize_llama_params(params, bits=bits, group=128 if bits == 4 else 0)
     eng = Engine(params, cfg, device="cuda")
     prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=args.prompt).tolist()
     eos = (cfg.vocab_size + 7,)  # unreachable: every run makes all its steps
@@ -112,7 +122,8 @@ def main() -> int:
                                generation_strategy="autoregressive"),
         "spec": GenerationConfig(max_steps=args.steps, sample=False,
                                  generation_strategy="self_speculative",
-                                 exit_layer=args.exit_layer, num_speculations=args.spec),
+                                 exit_layer=args.exit_layer, num_speculations=args.spec,
+                                 draft_quant=args.draft_quant),
     }
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -138,7 +149,9 @@ def main() -> int:
         if args.trace:
             os.makedirs(args.trace, exist_ok=True)
             prof.export_chrome_trace(os.path.join(args.trace, f"{args.config}_{mode}.json"))
-        rec = {"mode": mode, "config": args.config, "device": card, "prompt": args.prompt,
+        rec = {"mode": mode, "config": args.config, "quantize": args.quantize,
+               "draft_quant": args.draft_quant if mode == "spec" else 0,
+               "device": card, "prompt": args.prompt,
                "tokens": n, "wall_s": wall, "tok_s": n / wall,
                "wall_s_profiled": wall_prof,
                "matches": int(out.matches), "drafts": int(out.drafts)}

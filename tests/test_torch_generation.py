@@ -183,15 +183,20 @@ def test_prefill_dispatches_to_flash_once_per_layer(engines, monkeypatch):
 
 
 def test_unported_options_raise(engines):
+    """Prompt lookup, tree speculation and adaptive drafting (also with a
+    quantized drafter) raise; the int8 KV cache and quantized drafters run
+    (tests/test_torch_quant.py holds them to the JAX engine)."""
     _, te = engines
+    spec = dict(generation_strategy="self_speculative", exit_layer=2, num_speculations=3)
     for kw in (dict(generation_strategy="prompt_lookup", num_speculations=3),
-               dict(generation_strategy="self_speculative", exit_layer=2,
-                    num_speculations=3, spec_tree_width=2),
-               dict(generation_strategy="self_speculative", exit_layer=2,
-                    num_speculations=3, draft_exit_prob=0.5),
-               dict(kv_quant=True)):
+               dict(spec, spec_tree_width=2),
+               dict(spec, draft_exit_prob=0.5),
+               dict(spec, draft_exit_prob=0.5, draft_quant=8)):
         with pytest.raises(NotImplementedError):
             te.generate(PROMPT, GenerationConfig(max_steps=4, sample=False, **kw))
+    for kw in (dict(kv_quant=True), dict(spec, kv_quant=True, draft_quant=8)):
+        out = te.generate(PROMPT, GenerationConfig(max_steps=4, sample=False, **kw))
+        assert int(out.num_tokens[0]) == 4
 
 
 def _marginals(engine, gen_cfg, generate, positions, n_rows):

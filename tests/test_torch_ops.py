@@ -259,6 +259,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "layerskip_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_spec.py"]
     assert len(files) > 10
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    assert {"layerskip_tpu_torch/quant.py", "layerskip_tpu_torch/ops/linear.py",
+            "layerskip_tpu_torch/ops/cuda/quant_matmul.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
