@@ -8,21 +8,32 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      all started together;
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's, a library call's and the card's bound:
-     K1 (flash prefill) and K4-K7 (quantized products) at the TPU kernel
-     gate's shapes and at the 7B shapes of the main paths;
+     K1 (flash prefill), K2/K3 (paged decode attention, bf16/fp32 and int8
+     pools) and K4-K7 (quantized products) at the TPU kernel gate's shapes
+     and at the 7B shapes of the main paths;
   4. exact greedy AR == self-spec in fp32 at a small width, through the
      kernels: the dense base (K1, 4 launches per prefill), int8 and int4
      bases, int8 and int4 drafters over the dense base (== dense AR), and
-     the int8 KV cache;
+     the int8 KV cache; then paged continuous sessions (K2, K3, and K2 on
+     an int8 base with K4/K5) == solo ``generate``, with K2/K3 launched a
+     multiple of W*E + L times;
   5. the main path at full width: random Llama-2-7B-shaped weights in bf16
      (identity tail past the exit layer), greedy AR then self-spec with
      exit 8 and W=6, tok/s, acceptance, and launches per prefill;
   6. the quantized paths at full width, from phase 5's weights: int8 and
      int4 bases (AR and spec) and int8 and int4 drafters over the bf16 base
      (spec), with tok/s, acceptance, launches and greedy agreement;
+  7. paged continuous serving at full width, from phase 5's weights:
+     ``ContinuousBatchScheduler`` with 4 slots, pages of 128 and a pool
+     that makes requests wait for pages, eight requests over a bf16 pool
+     (K2) and over the int8 pool (K3), and four sharing a prefix through
+     the prefix cache; aggregate tok/s, latency, acceptance, launches,
+     each request == its solo stream up to its first near tie (at least two
+     tokens compared per request), and every served token within the solo
+     streams' own bf16 noise of the teacher-forced greedy choice;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
-Every kernel count is set to 0 just before each run of phases 5 and 6 and
-read just after it.
+Every kernel count is set to 0 just before each run of phases 5, 6 and 7
+and read just after it.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing anything.
@@ -60,30 +71,22 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
+def time_ms(fn, iters: int = 20, cold: bool = False) -> float:
+    """Mean device time of one call of ``fn``: CUDA events around each call
+    only. Nothing waits on the device until the last call, and before each
+    call the device spins for ~1 ms, longer than the host takes to enqueue
+    a call and its wrapper's checks, so the events time the device work of
+    the call and not the host's launch overhead. With ``cold`` the 50 MB
+    L2 is flushed (a 256 MiB memset, outside the events) before each call,
+    as a decode step finds a layer's weights."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") if cold else None
+    for _ in range(1 if cold else 3):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def time_cold_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` with the 50 MB L2 flushed before each call,
-    as a decode step finds a layer's weights: CUDA events around each call
-    only, the flush outside them. Nothing waits on the device until the
-    last call, and each flush (a 256 MiB memset, ~0.1 ms) outlasts the
-    host's time to enqueue a call, so the events time the device work and
-    not the host's launch overhead."""
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    fn()
     events = []
     for _ in range(iters):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(2_000_000)  # cycles
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -93,12 +96,20 @@ def time_cold_ms(fn, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def time_cold_ms(fn, iters: int = 20) -> float:
+    return time_ms(fn, iters, cold=True)
+
+
 def kernel_counters():
-    """name -> wrapper, for every kernel of the main paths (K1, K4-K7)."""
+    """name -> wrapper, for every kernel of the main paths (K1-K7)."""
+    from layerskip_tpu_torch.ops.cuda import paged_decode as pd
     from layerskip_tpu_torch.ops.cuda import quant_matmul as qmm
     from layerskip_tpu_torch.ops.cuda.flash_prefill import flash_prefill_attention
 
-    return {"flash_prefill": flash_prefill_attention, "quant_matmul_t": qmm.quant_matmul_t,
+    return {"flash_prefill": flash_prefill_attention,
+            "paged_decode_attention": pd.paged_decode_attention,
+            "paged_decode_attention_q8": pd.paged_decode_attention_q8,
+            "quant_matmul_t": qmm.quant_matmul_t,
             "quant_matmul": qmm.quant_matmul, "int4_matmul": qmm.int4_matmul,
             "int4_matmul_t": qmm.int4_matmul_t}
 
@@ -294,14 +305,206 @@ def check_quant_kernels():
     return ok, results
 
 
+def paged_cases():
+    """(name, B, T, G, Hkv, Dh, page, row positions, dtype, int8 pool, window,
+    scale, softcap, tree, tol). The gate's ten paged cases and tolerances
+    (scripts/kernel_gate.py: fp32, pages of 128, capacity 256, 200 written
+    keys, rows at 150 and 90; tol 0.005, 0.01 with the Gemma score math,
+    0.2 for an int8 pool), pages of 16 and 256, and the 7B decode shapes
+    of phase 7 (B 4, Hkv 32, G 1, Dh 128, page 128, about 400 keys of
+    context, T 1 and 7, bf16 and int8 pools; tol one bf16 rounding of an
+    output below 2, 0.02)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gate = (150, 90)
+    ctx7b = (391, 350, 300, 377)
+    return [
+        ("paged_decode_t1", 2, 1, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, False, 5e-3),
+        ("paged_decode_t7", 2, 7, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, False, 5e-3),
+        ("paged_decode_sliding", 2, 4, 1, 2, 128, 128, gate, f32, False, 9, 0.0, 0.0, False,
+         5e-3),
+        ("paged_decode_gemma", 2, 4, 2, 2, 128, 128, gate, f32, False, 48, 32.0 ** -0.5, 50.0,
+         False, 0.01),
+        ("paged_decode_q8_t1", 2, 1, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, False, 0.2),
+        ("paged_decode_q8_t7", 2, 7, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, False, 0.2),
+        ("paged_decode_tree", 2, 10, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, True, 5e-3),
+        ("paged_decode_tree_q8", 2, 10, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, True,
+         0.2),
+        ("paged_decode_tree_gemma", 2, 10, 2, 2, 128, 128, gate, f32, False, 64,
+         32.0 ** -0.5, 50.0, True, 0.01),
+        ("paged_decode_tree_gemma_q8", 2, 10, 2, 2, 128, 128, gate, f32, True, 64,
+         32.0 ** -0.5, 50.0, True, 0.2),
+        ("paged_decode_page16", 2, 7, 2, 2, 128, 16, gate, f32, False, 0, 0.0, 0.0, False,
+         5e-3),
+        ("paged_decode_page256_q8", 2, 7, 2, 2, 128, 256, gate, f32, True, 0, 0.0, 0.0, False,
+         0.2),
+        ("paged_decode_7b_t1_bf16", 4, 1, 1, 32, 128, 128, ctx7b, bf16, False, 0, 0.0, 0.0,
+         False, 0.02),
+        ("paged_decode_7b_t7_bf16", 4, 7, 1, 32, 128, 128, ctx7b, bf16, False, 0, 0.0, 0.0,
+         False, 0.02),
+        ("paged_decode_q8_7b_t1_bf16", 4, 1, 1, 32, 128, 128, ctx7b, bf16, True, 0, 0.0, 0.0,
+         False, 0.02),
+        ("paged_decode_q8_7b_t7_bf16", 4, 7, 1, 32, 128, 128, ctx7b, bf16, True, 0, 0.0, 0.0,
+         False, 0.02),
+    ]
+
+
+def paged_case_tensors(b, t, g, hkv, dh, page, rows, dtype, quant, tree, gen):
+    """Pools of one layer (of a two-layer stack) with each row mapped to
+    scrambled pages (the capacity of phase 7's slots, 392 keys, for the 7B
+    shapes; 256 for the gate's), written up to each row's frontier, plus the
+    tree's three depths of three chains past it. Returns the k and v
+    buffers, the same keys and values unquantized in an fp32 pool, q, the
+    positions and the tree arguments."""
+    from layerskip_tpu_torch.config import tiny_config
+    from layerskip_tpu_torch.ops.paged_kv import init_paged_group, paged_geometry
+
+    cap = 392 if b == 4 else 256
+    cap_pages, _, maxp = paged_geometry(cap, page, 256)
+    pool_pages = b * cap_pages + 3
+    table = torch.full((b, maxp), pool_pages, dtype=torch.int32)
+    perm = torch.randperm(pool_pages, generator=torch.Generator().manual_seed(5))
+    for r in range(b):
+        table[r, :cap_pages] = perm[r * cap_pages:(r + 1) * cap_pages]
+    table = table.cuda()
+    cfg = tiny_config(num_key_value_heads=hkv, num_attention_heads=hkv * g,
+                      hidden_size=hkv * g * dh, dtype=dtype)
+    group, ref = (init_paged_group(dataclasses.replace(cfg, dtype=dt), 2, b, pool_pages,
+                                   page, cap, 256, quant=quantized, table=table,
+                                   device="cuda")
+                  for quantized, dt in ((quant, dtype), (False, torch.float32)))
+    # ref holds the same keys and values unquantized
+    k, v, rk, rv = group.k[1], group.v[1], ref.k[1], ref.v[1]
+    ctx = torch.tensor(rows, device="cuda")
+    front = int(ctx.max()) + (1 if tree else t)
+
+    def write(n, pos):
+        for dst, src in ((k, rk), (v, rv)):
+            x = torch.randn(b, n, hkv, dh, generator=gen, device="cuda")
+            dst.write(x.to(dtype), pos)
+            src.write(x.to(dtype).float(), pos)
+
+    write(front, 0)
+    tree_kw = {}
+    if tree:  # t = 1 + 3 * 3
+        scratch = ctx + 1
+        for d in range(3):
+            write(3, scratch + 3 * d)
+        offs = torch.tensor([0] + [1 + d for d in range(3) for _ in range(3)], device="cuda")
+        pos = ctx[:, None] + offs
+        chain = torch.tensor([-1] + [c for _ in range(3) for c in range(3)], device="cuda")
+        tree_kw = dict(tree_chain=chain.expand(b, t), tree_scratch=scratch, tree_fanout=3)
+    else:
+        pos = ctx[:, None] + torch.arange(t, device="cuda")
+    q = torch.randn(b, t, hkv * g, dh, generator=gen, device="cuda").to(dtype)
+    return k, v, rk, rv, q, pos, tree_kw
+
+
+def paged_bound(q, hkv, n_slots, pos, window, tree_kw, quant):
+    """(bound_ms, bound_by): q and o once, and the K and V (with their
+    scales) of every key that some query row of a batch row can see (the
+    causal, window and tree clauses, as ``flash_bound`` counts them), once,
+    over the memory rate; against 4 * Dh flops per visible (query head,
+    key) pair at the peak rate for q's dtype."""
+    from layerskip_tpu_torch.ops.cuda.paged_decode import _rows, _visible
+
+    b, t, hq, dh = q.shape
+    q_pos, chain, scratch, fanout, window = _rows(
+        q, pos, tree_kw.get("tree_chain"), tree_kw.get("tree_scratch"),
+        tree_kw.get("tree_fanout", 0), window)
+    vis = _visible(q_pos.long(), n_slots, window, chain, scratch, fanout)  # [B, T, S]
+    keys, pairs = int(vis.any(dim=1).sum()), int(vis.sum()) * hq
+    esize = q.element_size()
+    per_key = hkv * (dh + 2) if quant else hkv * dh * esize  # K or V bytes per key
+    nbytes = 2 * b * t * hq * dh * esize + 2 * keys * per_key
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, 4.0 * dh * pairs / PEAK_FLOP_PER_S[q.dtype]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def check_paged_kernels():
+    """K2/K3 against their plain versions at paged_cases(); for an int8 pool
+    also against the same function over the unquantized keys (the gate's
+    0.2 is that error), while K3 against its plain version must stay within
+    fp32 rounding (5e-3). ``library_ms`` is SDPA over a contiguous view
+    gathered ahead of time and timed alone: no single PyTorch call reads
+    through a page table."""
+    import torch.nn.functional as F
+
+    from layerskip_tpu_torch.ops.cuda import paged_decode as pd
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results, ok = {}, True
+    for (name, b, t, g, hkv, dh, page, rows, dtype, quant, window, scale, cap, tree,
+         tol) in paged_cases():
+        k, v, rk, rv, q, pos, tree_kw = paged_case_tensors(b, t, g, hkv, dh, page, rows,
+                                                           dtype, quant, tree, gen)
+        kw = dict(q_heads_per_kv=g, sliding_window=window, score_scale=scale,
+                  logit_softcap=cap, **tree_kw)
+        if quant:
+            fn = lambda: pd.paged_decode_attention_q8(  # noqa: E731
+                q, k.pool, k.scale, v.pool, v.scale, k.table, pos, **kw)
+            plain = lambda: pd.paged_decode_attention_q8_plain(  # noqa: E731
+                q, k.pool, k.scale, v.pool, v.scale, k.table, pos, **kw)
+        else:
+            fn = lambda: pd.paged_decode_attention(  # noqa: E731
+                q, k.pool, v.pool, k.table, pos, **kw)
+            plain = lambda: pd.paged_decode_attention_plain(  # noqa: E731
+                q, k.pool, v.pool, k.table, pos, **kw)
+        got = fn()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        passed = finite
+        extra = ""
+        if quant:
+            # the gate's comparison: against unquantized keys, at its tol
+            full = pd.paged_decode_attention_plain(q.float(), rk.pool, rv.pool, rk.table, pos,
+                                                   **kw)
+            err_full = (got.float() - full).abs().max().item()
+            # fp32: the gate's tol is for the unquantized keys, fp32
+            # rounding (5e-3) for K3's own function; bf16: one rounding
+            # (tol) for K3's function, the gate's 0.2 for the unquantized
+            tol, full_tol = (5e-3, tol) if dtype == torch.float32 else (tol, 0.2)
+            passed &= err_full <= full_tol
+            extra = f" vs_unquantized={err_full:.3g} (tol {full_tol})"
+        passed &= err <= tol
+        ms = time_cold_ms(fn)
+        plain_ms = time_cold_ms(plain, 5)
+        library_ms = None
+        if not tree and not cap:
+            kd = (k.gather_view(dtype) if quant else k.gather_view()).transpose(1, 2)
+            vd = (v.gather_view(dtype) if quant else v.gather_view()).transpose(1, 2)
+            kp = torch.arange(kd.shape[2], device="cuda")
+            mask = kp[None, None, :] <= pos[:, :, None]
+            if window:
+                mask &= kp[None, None, :] > pos[:, :, None] - window
+            qt = q.transpose(1, 2)
+            library_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=mask[:, None], scale=scale or dh ** -0.5,
+                enable_gqa=True))
+            del kd, vd
+        bound_ms, bound_by = paged_bound(q, hkv, k.max_pages * page, pos, window, tree_kw,
+                                         quant)
+        ok &= passed
+        results[name] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[kernel] {name}: {'PASS' if passed else 'FAIL'} max_abs_err={err:.3g} "
+            f"tol={tol}{extra} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+            f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}) shape=B{b} T{t} Hq{hkv * g} Hkv{hkv} "
+            f"Dh{dh} page{page} rows{rows} win{window} tree={tree} "
+            f"{'int8' if quant else str(dtype).split('.')[-1]} pool, q "
+            f"{str(dtype).split('.')[-1]}")
+    return ok, results
+
+
 # ------------------------------------------------------------ phase 4
 
 
-def exact_fp32_greedy():
-    from layerskip_tpu_torch.config import GenerationConfig, tiny_config
-    from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
+def small_fp32_model():
+    """(cfg, params) of phase 4's narrow fp32 model (Dh 64)."""
+    from layerskip_tpu_torch.config import tiny_config
     from layerskip_tpu_torch.models.params import init_params
-    from layerskip_tpu_torch.quant import quantize_llama_params
 
     cfg = tiny_config(num_hidden_layers=4, hidden_size=256, num_attention_heads=4,
                       num_key_value_heads=2, intermediate_size=512, vocab_size=512,
@@ -313,6 +516,15 @@ def exact_fp32_greedy():
         getattr(params.layers, name).mul_(7.5)
     params.embed.mul_(15.0)
     params.lm_head.mul_(7.5)
+    return cfg, params
+
+
+def exact_fp32_greedy():
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
+    from layerskip_tpu_torch.quant import quantize_llama_params
+
+    cfg, params = small_fp32_model()
     eng = Engine(params, cfg, device="cuda")
     prompt = np.random.default_rng(1).integers(3, cfg.vocab_size, size=200).tolist()
     eos = (cfg.vocab_size + 7,)  # unreachable: every run makes all 48 steps
@@ -384,6 +596,73 @@ def exact_fp32_greedy():
     return ok
 
 
+def serve_session(session, prompts, budgets):
+    """Feed ``prompts`` through a continuous session's free slots as they
+    open, two rounds per step; returns {request: tokens}."""
+    got, owner, queue = {}, {}, list(range(len(prompts)))
+    while queue or session.has_active():
+        slots = session.free_slots()[:len(queue)]
+        if slots:
+            take = [queue.pop(0) for _ in slots]
+            session.insert(slots, [prompts[i] for i in take],
+                           max_tokens=[budgets[i] for i in take])
+            owner.update(zip(slots, take))
+        for row, toks, _ in session.step(max_rounds=2):
+            got[owner[row]] = toks
+    return got
+
+
+def exact_fp32_paged():
+    """Paged continuous sessions (4 slots, six requests joining as slots
+    free, pages of 16, prompt bucket 64) emit exactly the solo ``generate``
+    streams in fp32, over the model-dtype pool (K2) and the int8 pool (K3),
+    and on an int8 base (K4/K5 beside K2). With no tree and a bucket above
+    16 the insert prefill runs K1 over the gathered view of its rows, not
+    K2, so the session launches K2 (K3) a positive multiple of W*E + L
+    times (one round: W drafts over E layers, then the verify over L)."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
+    from layerskip_tpu_torch.quant import quantize_llama_params
+
+    cfg, params = small_fp32_model()
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in (40, 7, 60, 23, 51, 12)]
+    budgets = [40, 9, 33, 48, 5, 20]
+    eos = (cfg.vocab_size + 7,)
+    e, w, nl = 2, 4, cfg.num_hidden_layers
+    per_round = w * e + nl
+    gen = GenerationConfig(max_steps=48, sample=False, generation_strategy="self_speculative",
+                           exit_layer=e, num_speculations=w)
+    ok = True
+    for label, base, kv_quant in (("fp32 pool", params, False), ("int8 pool", params, True),
+                                  ("int8 base, fp32 pool", quantize_llama_params(params), False)):
+        eng = Engine(base, cfg, device="cuda")
+        g = dc.replace(gen, kv_quant=kv_quant)
+        kernel = "paged_decode_attention_q8" if kv_quant else "paged_decode_attention"
+        session = eng.continuous_session(g, batch=4, prompt_bucket=64, eos_ids=eos,
+                                         paged_pool_pages=40, page_size=16)
+        reset_counts()
+        got = serve_session(session, prompts, budgets)
+        n = read_counts()
+        want = [postprocess_output(eng.generate(p, dc.replace(g, max_steps=m), eos_ids=eos),
+                                   eos, m) for p, m in zip(prompts, budgets)]
+        same = [got[i] == want[i] for i in range(len(prompts))]
+        quant_ok = (n["quant_matmul_t"] > 0 and n["quant_matmul"] > 0) \
+            if base is not params else n["quant_matmul_t"] == n["quant_matmul"] == 0
+        other = "paged_decode_attention" if kv_quant else "paged_decode_attention_q8"
+        good = (all(same) and n[kernel] > 0 and n[kernel] % per_round == 0
+                and n[other] == 0 and quant_ok)
+        ok &= good
+        log(f"[fp32 paged] {label}: session == solo for {sum(same)}/{len(same)} requests "
+            f"({sum(len(t) for t in got.values())} tokens), launches {kernel}={n[kernel]} "
+            f"(a multiple of W*E+L={per_round}: {n[kernel] % per_round == 0}) "
+            f"quant_matmul_t={n['quant_matmul_t']} quant_matmul={n['quant_matmul']} -> "
+            f"{'PASS' if good else 'FAIL'}")
+    return ok
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -391,21 +670,45 @@ def first_diff(a, b) -> int:
     return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
 
 
-def near_tie(params, cfg, prompt, toks):
-    """(first position whose top-2 logit gap is under 0.05, the teacher-
-    forced argmax's agreement with ``toks``, all logits finite) from one
-    forward over prompt + toks."""
+NEAR_TIE = 0.05  # a top-2 logit gap below this is a near tie in bf16
+
+
+def teacher_forced(params, cfg, prompt, toks, kv_quant=False):
+    """Logits [len(toks), V] that predict each of ``toks`` from one forward
+    over prompt + toks, through the int8 cache with ``kv_quant``."""
     from layerskip_tpu_torch.models import llama
-    from layerskip_tpu_torch.ops.kv_cache import init_kv_cache
+    from layerskip_tpu_torch.ops.kv_cache import init_kv_cache, init_quant_kv_cache
 
     ids = torch.tensor([prompt + toks], device="cuda")
     with torch.inference_mode():
-        cache = init_kv_cache(cfg, 1, ids.shape[1], device="cuda")
-        logits = llama.forward(params, cfg, ids, cache, 0).logits[0, len(prompt) - 1:-1]
+        init = init_quant_kv_cache if kv_quant else init_kv_cache
+        cache = init(cfg, 1, ids.shape[1], device="cuda")
+        return llama.forward(params, cfg, ids, cache, 0).logits[0, len(prompt) - 1:-1]
+
+
+def near_tie(params, cfg, prompt, toks, kv_quant=False):
+    """(first position whose top-2 logit gap is under NEAR_TIE, the teacher-
+    forced argmax's agreement with ``toks``, all logits finite) from one
+    forward over prompt + toks (through the path's own cache type)."""
+    logits = teacher_forced(params, cfg, prompt, toks, kv_quant)
     top2 = logits.topk(2, dim=-1).values
     gaps = (top2[:, 0] - top2[:, 1]).tolist()
-    tie = next((j for j, gap in enumerate(gaps) if gap < 0.05), len(gaps))
+    tie = next((j for j, gap in enumerate(gaps) if gap < NEAR_TIE), len(gaps))
     return tie, first_diff(toks, logits.argmax(-1).tolist()), bool(torch.isfinite(logits).all())
+
+
+def greedy_shortfall(params, cfg, prompt, toks, kv_quant=False):
+    """(tokens that are the teacher-forced argmax, the largest gap between
+    the teacher-forced top logit and the logit of the token chosen) over
+    every token of a greedy stream: each choice is checked against the
+    model given the stream's own history, so a stream that left the solo
+    one at a near tie is still checked to its end."""
+    if not toks:
+        return 0, 0.0
+    logits = teacher_forced(params, cfg, prompt, toks, kv_quant)
+    chosen = logits.gather(1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+    short = logits.max(dim=-1).values - chosen
+    return int((short == 0).sum()), float(short.max())
 
 
 def generate_timed(eng, prompt, gen_cfg, eos):
@@ -564,6 +867,177 @@ def quantized_full_width(params, cfg, prompt, bf16_ar, bf16_tie):
     return ok, stats, total
 
 
+# ------------------------------------------------------------ phase 7
+
+
+SERVE_BATCH, SERVE_BUCKET, SERVE_PAGE = 4, 256, 128
+
+
+def serve_run(eng, gen_cfg, prompts, budgets, pool_pages, prefix_cache=False):
+    """One ``ContinuousBatchScheduler`` run of every request, submitted at
+    once (with the prefix cache, the first alone, then the rest once it is
+    in: a batch admitted together publishes its pages only after its
+    insert), with every kernel count set to 0 just before it and read just
+    after. Returns (tokens per request, wall seconds, scheduler, counts)."""
+    from layerskip_tpu_torch.serving import ContinuousBatchScheduler
+
+    sched = ContinuousBatchScheduler(
+        eng, gen_cfg, batch_size=SERVE_BATCH, prompt_bucket=SERVE_BUCKET,
+        eos_ids=(eng.cfg.vocab_size + 7,), paged_pool_pages=pool_pages,
+        page_size=SERVE_PAGE, prefix_cache=prefix_cache)
+    reset_counts()
+    t0 = time.perf_counter()
+    sched.start()
+    try:
+        futs = [sched.submit(prompts[0], max_tokens=budgets[0])]
+        while prefix_cache and not sched.session.has_active() and not futs[0].done():
+            time.sleep(0.001)
+        futs += [sched.submit(p, max_tokens=m) for p, m in zip(prompts[1:], budgets[1:])]
+        toks = [f.result(timeout=600) for f in futs]
+    finally:
+        sched.stop()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return toks, secs, sched, read_counts()
+
+
+def round_costs(eng, gen_cfg, prompts):
+    """Where a served token's time goes: wall ms (synchronized) of one
+    insert of ``batch`` 256-bucket prompts, of one round after it and, at
+    batch 4, of a one-request insert beside three live rows, for a paged
+    bf16 pool at batch 4 and 1 and a contiguous cache at batch 4 (whose
+    insert still runs every row)."""
+    out = {}
+    for label, batch, paged in (("paged_b4", 4, dict(paged_pool_pages=16)),
+                                ("contiguous_b4", 4, {}),
+                                ("paged_b1", 1, dict(paged_pool_pages=4))):
+        if paged:
+            paged["page_size"] = SERVE_PAGE
+        session = eng.continuous_session(gen_cfg, batch, SERVE_BUCKET,
+                                         eos_ids=(eng.cfg.vocab_size + 7,), **paged)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.insert(list(range(batch)), prompts[:batch], max_tokens=[FULL_STEPS] * batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        session.step()
+        t2 = time.perf_counter()
+        for _ in range(8):
+            session.step()
+        t3 = time.perf_counter()
+        out[label] = dict(insert_ms=(t1 - t0) * 1e3, first_round_ms=(t2 - t1) * 1e3,
+                          round_ms=(t3 - t2) / 8 * 1e3)
+        if batch > 1:  # one request replacing another beside three live ones
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.insert([0], prompts[batch:batch + 1], max_tokens=[FULL_STEPS])
+            torch.cuda.synchronize()
+            out[label]["insert_one_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"[serve rounds] one insert and one round, wall ms (synchronized): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def serving_full_width(params, cfg, spec_tok_s):
+    """Continuous serving at full width from phase 5's bf16 weights: batch
+    4, prompt bucket 256, pages of 128, exit 8, W 6, greedy. Eight requests
+    (prompts of 60-200 tokens, budgets of 32-128) over a pool of about 60%
+    of four slots' worst case, so some wait for pages: once with a bf16
+    pool (K2) and once with the int8 pool (K3); then four requests sharing
+    a 128-token prefix with the prefix cache (three hits). Every request
+    must equal its solo ``generate`` stream up to its first near tie (by
+    the logits of its own cache type), and each run must compare at least
+    two tokens per request that way. Since this random model's first near
+    ties come within a few tokens, every served token is also held to the
+    teacher-forced logits given the served history: its shortfall from the
+    top logit may be at most twice the larger of NEAR_TIE and the solo
+    streams' own worst shortfall (the bf16 noise between the decode and
+    prefill paths, which the reference path shows too; a wrong KV read or
+    a mixed-up row falls whole logits short)."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine
+
+    eng = Engine(params, cfg, device="cuda")
+    rng = np.random.default_rng(7)
+    lens = [60, 200, 137, 95, 181, 72, 160, 118]
+    budgets = [128, 96, 128, 32, 80, 128, 96, 100]
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in lens]
+    prefix = rng.integers(3, cfg.vocab_size, size=128).tolist()
+    shared = [prefix + rng.integers(3, cfg.vocab_size, size=n).tolist()
+              for n in (20, 45, 70, 33)]
+    shared_budgets = [64, 128, 32, 96]
+    worst = -(-(SERVE_BUCKET + FULL_STEPS + FULL_W + 2) // SERVE_PAGE)  # pages per slot
+    pool = int(0.6 * SERVE_BATCH * worst)
+    gen = GenerationConfig(max_steps=FULL_STEPS, sample=False,
+                           generation_strategy="self_speculative", exit_layer=FULL_EXIT,
+                           num_speculations=FULL_W)
+    eos = (cfg.vocab_size + 7,)
+    solo_cache = {}
+
+    def solo(p, m, kv_quant):
+        key = (tuple(p), m, kv_quant)
+        if key not in solo_cache:
+            out = eng.generate(p, dc.replace(gen, max_steps=m, kv_quant=kv_quant), eos_ids=eos)
+            toks = out.tokens[0, :int(out.num_tokens[0])].tolist()[:m]
+            solo_cache[key] = (toks, near_tie(params, cfg, p, toks, kv_quant)[0],
+                               greedy_shortfall(params, cfg, p, toks, kv_quant))
+        return solo_cache[key]
+
+    serve_run(eng, dc.replace(gen, max_steps=8), prompts[:2], [8, 8], pool)  # warm-up
+    ok, stats, total = True, {"rounds": round_costs(eng, gen, prompts)}, {}
+    for name, kv_quant, ps, ms, pc in (
+            ("bf16_pool", False, prompts, budgets, False),
+            ("int8_pool", True, prompts, budgets, False),
+            ("prefix_cache", False, shared, shared_budgets, True)):
+        toks, secs, sched, counts = serve_run(eng, dc.replace(gen, kv_quant=kv_quant), ps, ms,
+                                              pool, prefix_cache=pc)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        agree, n_argmax, worst, solo_argmax, solo_worst = [], 0, 0.0, 0, 0.0
+        for p, m, got in zip(ps, ms, toks):
+            want, tie, (solo_max, solo_short) = solo(p, m, kv_quant)
+            agree.append((first_diff(got, want), min(tie, m), len(got) == m))
+            n_max, short = greedy_shortfall(params, cfg, p, got, kv_quant)
+            n_argmax, worst = n_argmax + n_max, max(worst, short)
+            solo_argmax, solo_worst = solo_argmax + solo_max, max(solo_worst, solo_short)
+        n_tok = sum(len(t) for t in toks)
+        compared = sum(t for _, t, _ in agree)
+        limit = 2 * max(NEAR_TIE, solo_worst)
+        kernel = "paged_decode_attention_q8" if kv_quant else "paged_decode_attention"
+        acceptance = sched.stats["acceptance_sum"] / max(sched.stats["completed"], 1)
+        hits = sched.session.prefix_cache.hits if pc else None
+        good = (all(a >= t and full for a, t, full in agree) and compared >= 2 * len(ps)
+                and worst <= limit and counts[kernel] > 0
+                and sched.stats["completed"] == len(ps) and (not pc or hits >= 3))
+        ok &= good
+        stats[name] = dict(tok_s=n_tok / secs, tokens=n_tok, seconds=secs,
+                           vs_single_stream_spec=n_tok / secs / spec_tok_s,
+                           acceptance=acceptance, launches={kernel: counts[kernel]},
+                           latency=sched.latency.summary(), prefix_hits=hits,
+                           pool_pages=pool, rounds=sched.stats["rounds"],
+                           held_for_pages=sched.stats["held_for_pages"],
+                           compared_to_solo=compared, teacher_forced_argmax=n_argmax,
+                           worst_shortfall=worst, solo_teacher_forced_argmax=solo_argmax,
+                           solo_worst_shortfall=solo_worst, shortfall_limit=limit)
+        log(f"[serve {name}] {len(ps)} requests, {n_tok} tokens in {secs:.3f}s = "
+            f"{n_tok / secs:.2f} tok/s aggregate ({n_tok / secs / spec_tok_s:.2f}x the "
+            f"single-stream spec rate {spec_tok_s:.2f}), mean acceptance {acceptance:.4f}, "
+            f"{sched.stats['rounds']} scheduler steps, pool {pool} pages of {SERVE_PAGE}, "
+            f"{sched.stats['held_for_pages']} admissions held for pages, "
+            f"prefix hits {hits}; launches {kernel}={counts[kernel]} "
+            f"flash_prefill={counts['flash_prefill']}; equal to solo up to "
+            f"(first diff, first near tie or budget) {[(a, t) for a, t, _ in agree]}, "
+            f"{compared} tokens compared (at least {2 * len(ps)}); latency "
+            f"{json.dumps(sched.latency.summary())}; every served token against the "
+            f"teacher-forced logits ({'int8' if kv_quant else 'bf16'} cache) given its own "
+            f"history: {n_argmax}/{n_tok} the argmax, largest shortfall {worst:.4f} (limit "
+            f"{limit:.4f}; the solo streams: {solo_argmax}/{n_tok} the argmax, largest "
+            f"shortfall {solo_worst:.4f}) -> {'PASS' if good else 'FAIL'}")
+    return ok, stats, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -577,7 +1051,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     t_start = t0 = time.time()
-    sources = ("flash_prefill", "quant_matmul")
+    sources = ("flash_prefill", "paged_decode", "quant_matmul")
     build_libraries(sources)
     log(f"[build] {', '.join(s + '.cu' for s in sources)} in {time.time() - t0:.1f}s")
     for src in sources:  # the compiler's report, one line per source
@@ -593,9 +1067,11 @@ def main() -> int:
     t0 = time.time()
     ok_kernel, kres = check_flash_prefill(full_cache_len)
     ok_quant_kernel, qres = check_quant_kernels()
+    ok_paged_kernel, pres = check_paged_kernels()
+    ok_kernel &= ok_quant_kernel and ok_paged_kernel
     log(f"[phase 3] {time.time() - t0:.1f}s")
     t0 = time.time()
-    ok_fp32 = exact_fp32_greedy()
+    ok_fp32 = exact_fp32_greedy() & exact_fp32_paged()
     log(f"[phase 4] {time.time() - t0:.1f}s")
     t0 = time.time()
     ok_full, stats, counts, ctx = full_width()
@@ -603,13 +1079,17 @@ def main() -> int:
     t0 = time.time()
     ok_quant, qstats, qcounts = quantized_full_width(*ctx)
     log(f"[phase 6] {time.time() - t0:.1f}s")
-    for k, v in qcounts.items():
-        counts[k] += v
-    log(f"[summary] kernels={ok_kernel and ok_quant_kernel} fp32_exact={ok_fp32} "
-        f"full_width={ok_full} quantized_full_width={ok_quant} {json.dumps(stats)} "
-        f"{json.dumps(qstats)} launches={json.dumps(counts)} "
+    t0 = time.time()
+    ok_serve, sstats, scounts = serving_full_width(ctx[0], ctx[1], stats["spec_tok_s"])
+    log(f"[phase 7] {time.time() - t0:.1f}s")
+    for more in (qcounts, scounts):
+        for k, v in more.items():
+            counts[k] += v
+    log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
+        f"quantized_full_width={ok_quant} serving={ok_serve} {json.dumps(stats)} "
+        f"{json.dumps(qstats)} {json.dumps(sstats)} launches={json.dumps(counts)} "
         f"total {time.time() - t_start:.1f}s")
-    if not (ok_kernel and ok_quant_kernel and ok_fp32 and ok_full and ok_quant):
+    if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]
@@ -629,6 +1109,16 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source="layerskip_tpu_torch/csrc/quant_matmul.cu",
             replaces=f"layerskip_tpu/ops/pallas/quant_matmul.py:{line}",
+            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+        ))
+    for name, case, line in (("paged_decode_attention", "paged_decode_7b_t1_bf16", 331),
+                             ("paged_decode_attention_q8", "paged_decode_q8_7b_t1_bf16", 238)):
+        r = pres[case]
+        kernels.append(dict(
+            name=name, route="cuda", source="layerskip_tpu_torch/csrc/paged_decode.cu",
+            replaces=f"layerskip_tpu/ops/pallas/paged_decode.py:{line}",
             launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],

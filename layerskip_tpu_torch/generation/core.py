@@ -1,7 +1,8 @@
 """Shared generation-engine primitives (port of
 ``layerskip_tpu/generation/core.py``): KV-group construction, per-row
-update helpers, the result type, the speculation state and prompt
-bucketing. Token ids and counters are int64 tensors on the engine's device.
+update helpers, the result type, the speculation state (which carries its
+random generators) and prompt bucketing. Token ids and counters are int64
+tensors on the engine's device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from layerskip_tpu_torch.config import ModelConfig
+from layerskip_tpu_torch.generation.sampling import Generators
 from layerskip_tpu_torch.ops.kv_cache import KVCache, QuantKV
 
 
@@ -73,6 +75,9 @@ class _SpecState:
     done: torch.Tensor  # [B] bool
     matches: torch.Tensor  # [B] accepted drafts per row
     drafts: torch.Tensor  # [B] drafted tokens per row
+    # the random draws' source: one generator for the batch, or one per row
+    # (continuous serving seeds each request's row; greedy draws nothing)
+    generator: Generators = None
 
 
 def _bucket(n: int, sizes: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096)) -> int:

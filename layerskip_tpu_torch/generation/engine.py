@@ -10,19 +10,22 @@ loops run on the host with one device sync per step (AR) or per round
 
 Weight-quantized bases (quant.quantize_llama_params), quantized drafters
 (``GenerationConfig.draft_quant``) and the int8 KV cache (``kv_quant``) run
-through the same entry point. Stepped mode, streaming and continuous
-batching belong to later slices.
+through the same entry point. ``Engine.continuous_session`` serves rows that
+join and leave at round granularity, over contiguous or paged KV
+(generation/continuous.py). Stepped mode and streaming belong to later
+slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from layerskip_tpu_torch.config import GenerationConfig, ModelConfig
 from layerskip_tpu_torch.device import resolve_device
+from layerskip_tpu_torch.generation.continuous import ContinuousSession
 from layerskip_tpu_torch.generation.core import (
     GenerateOutput,
     _bucket,
@@ -33,6 +36,7 @@ from layerskip_tpu_torch.generation.core import (
 )
 from layerskip_tpu_torch.generation.processors import apply_ban, no_repeat_ngram_banned
 from layerskip_tpu_torch.generation.sampling import (
+    Generators,
     SamplingConfig,
     draw,
     token_distribution,
@@ -49,7 +53,7 @@ def ar_generate(
     cfg: ModelConfig,
     ids: torch.Tensor,  # [B, P] right-padded prompt
     true_len: torch.Tensor,  # [B]
-    generator: Optional[torch.Generator],
+    generator: Generators,  # one generator, or one per row
     *,
     max_steps: int,
     exit_layer: int,  # <= 0 => full model; > 0 => layers [0, E) + shared head
@@ -168,13 +172,18 @@ class Engine:
         self,
         prompt_ids,  # list[int] (batch=1), list[list[int]] (ragged batch), or [B, T]
         gen_cfg: GenerationConfig,
-        generator: Optional[torch.Generator] = None,  # default: seeded with 0
+        generator: Generators = None,  # one generator (default: seeded with 0),
+        # or one per row, so each row samples from its own stream
         eos_ids: Sequence[int] = (),
     ) -> GenerateOutput:
         padded, true_lens = _pad_prompts(
             prompt_ids, fixed_bucket=gen_cfg.max_prompt_len or None
         )
         b, bucket = padded.shape
+        if isinstance(generator, (list, tuple)):
+            if len(generator) != b:
+                raise ValueError(f"{len(generator)} generators for {b} rows")
+            generator = list(generator)
         scfg = SamplingConfig(sample=gen_cfg.sample, temperature=gen_cfg.temperature,
                               top_k=gen_cfg.top_k, top_p=gen_cfg.top_p)
         eos = tuple(int(x) for x in eos_ids) or tuple(self.cfg.eos_token_ids)
@@ -222,6 +231,40 @@ class Engine:
             return spec_generate(self.params, self.cfg, ids, true_len, generator,
                                  num_speculations=num_speculations, draft_params=draft,
                                  **common)
+
+    def continuous_session(
+        self, gen_cfg: GenerationConfig, batch: int, prompt_bucket: int,
+        eos_ids: Sequence[int] = (), paged_pool_pages: int = 0, page_size: int = 256,
+        prefix_cache: bool = False,
+    ) -> ContinuousSession:
+        """A live ``batch``-slot self-speculative session (continuous
+        batching; generation/continuous.py). ``paged_pool_pages > 0`` puts
+        the KV in a pool of that many shared pages of ``page_size`` tokens
+        instead of per-slot worst-case buffers; ``prefix_cache`` (paged
+        only) also shares page-aligned prompt-prefix KV across requests.
+        ``draft_quant`` and ``kv_quant`` apply as in ``generate``."""
+        eos = tuple(int(x) for x in eos_ids) or tuple(self.cfg.eos_token_ids)
+        if gen_cfg.stop_token_ids:
+            eos = eos + tuple(int(x) for x in gen_cfg.stop_token_ids)
+        strategy = gen_cfg.generation_strategy
+        if strategy in ("prompt_lookup", "hybrid"):
+            raise NotImplementedError(f"strategy {strategy!r} is not ported yet")
+        if strategy != "self_speculative":
+            raise ValueError(f"continuous batching runs self_speculative, not {strategy!r}")
+        tree_width = int(gen_cfg.spec_tree_width or 0)
+        for on, what in ((gen_cfg.draft_exit_prob, "adaptive drafting"),
+                         (tree_width > 1, "tree speculation")):
+            if on:
+                raise NotImplementedError(f"{what} is not ported yet")
+        if not (0 < gen_cfg.exit_layer < self.cfg.num_hidden_layers
+                and gen_cfg.num_speculations > 0):
+            raise ValueError("continuous batching needs 0 < exit_layer < num_hidden_layers "
+                             "and num_speculations > 0")
+        paged = (int(paged_pool_pages), int(page_size)) if paged_pool_pages else None
+        bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
+        draft = self._draft_params(gen_cfg.exit_layer, bits, dq_head, dq_mlp) if bits else None
+        return ContinuousSession(self, gen_cfg, batch, prompt_bucket, eos, paged=paged,
+                                 prefix_cache=prefix_cache, draft=draft)
 
 
 def _pad_prompts(prompt_ids, fixed_bucket=None):

@@ -3,14 +3,16 @@
 
 Greedy decoding is a one-hot distribution, so speculative rejection sampling
 degenerates exactly to longest-prefix matching: one code path serves both.
-Random draws come from an explicit ``torch.Generator``; they differ from
-``jax.random``'s, so sampled streams are compared by distribution only.
+Random draws come from an explicit ``torch.Generator``, or from one
+generator per batch row (continuous serving seeds each request's row, so its
+stream depends only on its own seed). They differ from ``jax.random``'s, so
+sampled streams are compared with the JAX package's by distribution only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -53,14 +55,27 @@ def token_distribution(logits: torch.Tensor, scfg: SamplingConfig) -> torch.Tens
     return torch.softmax(top_k_top_p_filter(logits / t, scfg.top_k, scfg.top_p), dim=-1)
 
 
-def draw(probs: torch.Tensor, generator: Optional[torch.Generator],
+Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
+
+
+def uniform(shape, generator: Generators, device) -> torch.Tensor:
+    """U[0, 1) of ``shape`` from ``generator``; with a sequence of generators,
+    row r of the leading axis comes from generator r alone."""
+    if isinstance(generator, (list, tuple)):
+        return torch.stack([torch.rand(shape[1:], generator=g, device=device)
+                            for g in generator])
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def draw(probs: torch.Tensor, generator: Generators,
          scfg: SamplingConfig) -> torch.Tensor:
-    """Token ids from [..., V] probabilities: the argmax when greedy, else a
-    Gumbel-max draw over log-probabilities (as ``jax.random.categorical``
-    draws), one independent draw per row from ``generator``."""
+    """Token ids from [..., V] probabilities: the argmax when greedy (no
+    random draw), else a Gumbel-max draw over log-probabilities (as
+    ``jax.random.categorical`` draws), one independent draw per row from
+    ``generator`` (see ``uniform``)."""
     if not scfg.sample:
         return torch.argmax(probs, dim=-1)
     logp = torch.log(probs + 1e-30)
-    u = torch.rand(probs.shape, generator=generator, device=probs.device)
+    u = uniform(probs.shape, generator, probs.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.argmax(logp + gumbel, dim=-1)

@@ -26,9 +26,11 @@ from layerskip_tpu_torch.generation.core import (
 )
 from layerskip_tpu_torch.generation.processors import apply_ban, no_repeat_ngram_banned
 from layerskip_tpu_torch.generation.sampling import (
+    Generators,
     SamplingConfig,
     draw,
     token_distribution,
+    uniform,
 )
 from layerskip_tpu_torch.models import llama
 from layerskip_tpu_torch.models.llama import LlamaParams
@@ -39,7 +41,7 @@ def _spec_prefill(
     cfg: ModelConfig,
     ids: torch.Tensor,  # [B, P] right-padded prompt
     true_len: torch.Tensor,  # [B]
-    generator: Optional[torch.Generator],
+    generator: Generators,  # one generator, or one per row
     *,
     max_steps: int,
     exit_layer: int,
@@ -88,6 +90,7 @@ def _spec_prefill(
         done=_is_eos(tok0, eos_ids) | (max_steps <= 1),
         matches=zeros,
         drafts=zeros.clone(),
+        generator=generator,
     )
 
 
@@ -96,7 +99,7 @@ def spec_generate(
     cfg: ModelConfig,
     ids: torch.Tensor,  # [B, P] right-padded prompt
     true_len: torch.Tensor,  # [B]
-    generator: Optional[torch.Generator],
+    generator: Generators,  # one generator, or one per row
     *,
     max_steps: int,
     exit_layer: int,
@@ -127,7 +130,7 @@ def spec_generate(
     )
     while not bool(state.done.all()):
         state = _spec_round(
-            params, cfg, state, generator, exit_layer=exit_layer,
+            params, cfg, state, exit_layer=exit_layer,
             num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
             ngram=ngram, draft_params=draft_params,
         )
@@ -143,7 +146,6 @@ def _spec_round(
     params: LlamaParams,
     cfg: ModelConfig,
     s: _SpecState,
-    generator: Optional[torch.Generator],
     *,
     exit_layer: int,
     num_speculations: int,
@@ -153,7 +155,9 @@ def _spec_round(
     draft_params: Optional[LlamaParams] = None,
 ) -> _SpecState:
     """One draft+verify round: each active row commits its accepted drafts
-    plus one extra token. The state's caches are updated in place.
+    plus one extra token. The state's caches are updated in place; random
+    draws come from the state's generator(s), row r's from its own when
+    there is one per row.
 
     With ``draft_params`` (a quantized copy of layers [0, E), see
     quant.quantize_draft_params) the drafts read the cheap weights, but the
@@ -164,6 +168,7 @@ def _spec_round(
     drafts wrote at positions ``ctx .. ctx + W - 1``."""
     b = s.next_tok.shape[0]
     e, w = exit_layer, num_speculations
+    generator = s.generator
     dev = s.next_tok.device
     hist_len0 = s.prompt_len + s.out_len  # committed history incl. next_tok
 
@@ -212,7 +217,7 @@ def _spec_round(
     # ---- acceptance: rejection sampling; one-hot => greedy prefix match ----
     pv_d = torch.gather(p_verify[:, :w], 2, drafts[..., None])[..., 0]  # [B, W]
     pd_d = torch.gather(p_draft, 2, drafts[..., None])[..., 0]
-    u = torch.rand((b, w), generator=generator, device=dev)
+    u = uniform((b, w), generator, dev)
     accept = (u * pd_d < pv_d) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
     n_raw = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [B]
     # clamp acceptances near max_steps so committed counts match the
@@ -261,4 +266,5 @@ def _spec_round(
         done=done,
         matches=s.matches + torch.minimum(n, drafted) * act,
         drafts=s.drafts + drafted * act,
+        generator=generator,
     )

@@ -6,14 +6,24 @@ drafting and the verification window; masks are built from position
 counters, never stored. Scores and softmax are fp32 and the weighted sum
 returns in the activation dtype.
 
-Dispatch: a prompt block with one shared past (``past_scalar``), no tree,
-more than 16 queries and a head_dim the kernel takes goes to
-``flash_prefill_attention``, which launches the CUDA kernel for CUDA tensors
-and runs its plain version for CPU tensors. Every other call (one-token
-drafts, the verify window, per-row pasts) takes the masked path below, as
-the JAX package's contiguous-cache decode does. An int8 cache (``QuantKV``)
-is first dequantized to q's dtype, as the JAX package does, and then takes
-the same dispatch.
+Dispatch, as in the JAX package:
+
+  * a paged cache (``PagedKV``/``PagedQuantKV``, ops/paged_kv.py) with at
+    most 16 queries and a head_dim the kernels take goes to K2 or K3
+    (``ops/cuda/paged_decode.py``), which read the pages in place; any other
+    paged call (the insert prefill of a prompt bucket, at past 0 or at
+    per-row prefix lengths) gathers the logical view in q's dtype and goes
+    on below;
+  * a prompt block with one shared past (``past_scalar``), no tree, more
+    than 16 queries and a head_dim the kernel takes goes to
+    ``flash_prefill_attention`` (K1);
+  * every other call (one-token drafts, the verify window, per-row pasts)
+    takes the masked path below, as the JAX package's contiguous-cache
+    decode does. An int8 cache (``QuantKV``) is first dequantized to q's
+    dtype, as the JAX package does, and then takes the same dispatch.
+
+Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,15 +36,22 @@ from layerskip_tpu_torch.ops.cuda.flash_prefill import (
     HEAD_DIMS,
     flash_prefill_attention,
 )
+from layerskip_tpu_torch.ops.cuda.paged_decode import (
+    MAX_QUERY,
+    paged_decode_attention,
+    paged_decode_attention_q8,
+)
 from layerskip_tpu_torch.ops.kv_cache import QuantKV
+from layerskip_tpu_torch.ops.paged_kv import PagedKV, PagedQuantKV
 
 NEG_INF = -1e30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
-_MAX_SHORT_QUERY = 16  # drafts (T=1) and verify windows (T=W+1) stay masked
+_MAX_SHORT_QUERY = MAX_QUERY  # drafts (T=1) and verify windows (T=W+1)
 
 
 def gqa_attention(
     q: torch.Tensor,  # [B, T, Hq, Dh] (post-RoPE)
-    k_cache,  # [B, S, Hkv, Dh] tensor or QuantKV (post-RoPE, updated)
+    k_cache,  # [B, S, Hkv, Dh] tensor, QuantKV, or a per-layer PagedKV /
+    # PagedQuantKV (post-RoPE, updated)
     v_cache,  # [B, S, Hkv, Dh]
     q_positions: torch.Tensor,  # [T] or [B, T] absolute query positions
     *,
@@ -49,10 +66,24 @@ def gqa_attention(
     """Returns attention output [B, T, Hq, Dh] in q's dtype."""
     if tree_meta is not None:
         raise NotImplementedError("tree attention is not ported yet")
-    if isinstance(k_cache, QuantKV):
+    b, t, hq, dh = q.shape
+    if isinstance(k_cache, (PagedKV, PagedQuantKV)):
+        if t <= _MAX_SHORT_QUERY and dh in HEAD_DIMS:
+            kw = dict(q_heads_per_kv=q_heads_per_kv,
+                      sliding_window=sliding_window or 0,
+                      score_scale=float(score_scale or 0.0),
+                      logit_softcap=float(logit_softcap or 0.0))
+            if isinstance(k_cache, PagedKV):
+                return paged_decode_attention(q, k_cache.pool, v_cache.pool, k_cache.table,
+                                              q_positions, **kw)
+            return paged_decode_attention_q8(q, k_cache.pool, k_cache.scale, v_cache.pool,
+                                             v_cache.scale, k_cache.table, q_positions,
+                                             **kw)
+        k_cache = k_cache.gather_view(q.dtype)
+        v_cache = v_cache.gather_view(q.dtype)
+    elif isinstance(k_cache, QuantKV):
         k_cache = k_cache.dequantize(q.dtype)
         v_cache = v_cache.dequantize(q.dtype)
-    b, t, hq, dh = q.shape
     if past_scalar is not None and t > _MAX_SHORT_QUERY and dh in HEAD_DIMS:
         return flash_prefill_attention(
             q, k_cache, v_cache, int(past_scalar),

@@ -5,7 +5,8 @@ rejected speculation is a counter update, never a copy. Unlike the JAX
 package, writes are IN PLACE: ``write_kv`` stores into the given layer
 buffers (views of the stacked cache) and returns them, so a cache passed to
 a forward function is updated by it. ``QuantKV`` is the int8 cache
-(``GenerationConfig.kv_quant``), written in place the same way.
+(``GenerationConfig.kv_quant``), written in place the same way; the paged
+caches (``ops/paged_kv.py``) go through the same ``write_kv``.
 """
 
 from __future__ import annotations
@@ -103,13 +104,14 @@ def write_kv(k_layer, v_layer, k_new: torch.Tensor, v_new: torch.Tensor,
              write_pos: Union[int, torch.Tensor]):
     """Store [B, T, H, Dh] blocks at sequence offset ``write_pos`` in place.
 
-    ``k_layer``/``v_layer`` are [B, S, H, Dh] tensors or per-layer
-    ``QuantKV`` buffers. ``write_pos`` is an int (one frontier for every row)
-    or a [B] tensor (per-row frontiers); see ``_store`` for the clamp.
+    ``k_layer``/``v_layer`` are [B, S, H, Dh] tensors, or per-layer
+    ``QuantKV``, ``PagedKV`` or ``PagedQuantKV`` buffers, which store through
+    their own ``write``. ``write_pos`` is an int (one frontier for every
+    row) or a [B] tensor (per-row frontiers); see ``_store`` for the clamp.
     Positions beyond the valid length may hold stale data; the attention
     mask (key ``j <= q_pos``) never reads them.
     """
-    if isinstance(k_layer, QuantKV):
+    if not isinstance(k_layer, torch.Tensor):
         return k_layer.write(k_new, write_pos), v_layer.write(v_new, write_pos)
     _store(k_layer, k_new, write_pos)
     _store(v_layer, v_new, write_pos)

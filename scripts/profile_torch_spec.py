@@ -1,13 +1,15 @@
 """Where the time goes in the PyTorch port's main path on one NVIDIA GPU.
 
     python3 scripts/profile_torch_spec.py [--config 7b] [--steps 128]
-        [--quantize none|int8|int4] [--draft-quant 0|8|4]
+        [--quantize none|int8|int4] [--draft-quant 0|8|4] [--serve-batch 4]
 
 Random weights of a preset shape (bf16, identity tail past the exit layer,
 as chip_smoke.py builds them), optionally quantized (``--quantize``: an int8
 or int4 base; ``--draft-quant``: a quantized drafter for the spec run), a
 right-sized random prompt, greedy decoding.
-For AR and for self-spec it prints one JSON line each with:
+For AR and for self-spec (and, with ``--serve-batch B``, for 8 rounds of a
+paged continuous session with B slots of that prompt, pages of 128) it
+prints one JSON line each with:
 
   * wall seconds and tok/s of a whole ``Engine.generate`` (host clock around
     work that ends in a synchronize), with and without the profiler;
@@ -23,6 +25,7 @@ each at 7B). Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -44,6 +47,7 @@ from layerskip_tpu_torch.quant import quantize_llama_params  # noqa: E402
 # kernel name -> class, first match wins
 _CLASSES = (
     ("flash_prefill", re.compile(r"flash_prefill")),
+    ("paged_decode", re.compile(r"paged_decode")),
     ("quant_matmul", re.compile(r"qmm_")),
     ("gemm", re.compile(r"gemm|gemv|nvjet|sm90_xmma|cutlass|cublas|splitKreduce", re.I)),
     ("copy/cast", re.compile(r"copy|cast|convert|direct_copy|CatArray", re.I)),
@@ -105,6 +109,8 @@ def main() -> int:
     ap.add_argument("--spec", type=int, default=6)
     ap.add_argument("--quantize", default="none", choices=("none", "int8", "int4"))
     ap.add_argument("--draft-quant", type=int, default=0, choices=(0, 8, 4))
+    ap.add_argument("--serve-batch", type=int, default=0,
+                    help="also profile rounds of a paged continuous session")
     ap.add_argument("--trace", default="", help="directory for Chrome traces")
     args = ap.parse_args()
 
@@ -157,7 +163,43 @@ def main() -> int:
                "matches": int(out.matches), "drafts": int(out.drafts)}
         rec.update(_device_summary(prof, n))
         print(json.dumps(rec), flush=True)
+    if args.serve_batch:
+        _profile_serving(eng, modes["spec"], prompt, args, card)
     return 0
+
+
+def _profile_serving(eng, gcfg, prompt, args, card, rounds: int = 8):
+    """Rounds of a paged session with ``--serve-batch`` slots all decoding
+    (8 unprofiled, then 8 profiled; with W 6 at acceptance 1 no row runs out
+    of its --steps budget), after one insert of every slot."""
+    b = args.serve_batch
+    bucket = -(-args.prompt // 64) * 64
+    page = 128
+    pages = b * -(-(bucket + args.steps + args.spec + 2) // page)
+    session = eng.continuous_session(gcfg, b, bucket, eos_ids=(eng.cfg.vocab_size + 7,),
+                                     paged_pool_pages=pages, page_size=page)
+    session.insert(list(range(b)), [prompt] * b, max_tokens=[args.steps] * b)
+    session.step()  # warm-up round
+    runs = {}
+    for profiled in (False, True):
+        before = int(session.state.out_len.sum())
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ctx = torch.profiler.profile(activities=acts) if profiled else contextlib.nullcontext()
+        with ctx as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                session.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[profiled] = (int(session.state.out_len.sum()) - before, wall, prof)
+    n, wall, _ = runs[False]
+    n_prof, wall_prof, prof = runs[True]
+    rec = {"mode": f"serve_b{b}", "config": args.config, "quantize": args.quantize,
+           "device": card, "prompt": args.prompt, "rounds": rounds, "tokens": n,
+           "wall_s": wall, "tok_s": n / wall, "round_ms": wall / rounds * 1e3,
+           "wall_s_profiled": wall_prof}
+    rec.update(_device_summary(prof, n_prof))
+    print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

@@ -221,3 +221,240 @@ def test_quantized_greedy_spec_equals_ar_through_the_kernels(cuda, bits):
     assert len(ar) == 32
     assert run(generation_strategy="self_speculative", exit_layer=1,
                num_speculations=4) == ar
+
+
+# ------------------------------------------------------- K2 / K3 (paged)
+
+# (B, T, G, Hkv, Dh, page, dtype, int8 pool, window, scale, softcap, tree)
+# the TPU kernel gate's paged cases (pages of 128, 200 written keys, rows at
+# positions 150 and 90; scripts/kernel_gate.py) and other page sizes, head
+# dims and row tilings. Tolerances as for K1; the int8 pool is held to K3's
+# own function (fp32 dequantization), so to the same fp32 tolerance.
+_PCASES = {
+    "t1_f32": (2, 1, 2, 2, 128, 128, torch.float32, False, 0, 0.0, 0.0, False),
+    "t7_bf16": (2, 7, 2, 2, 128, 128, torch.bfloat16, False, 0, 0.0, 0.0, False),
+    "sliding_f32": (2, 4, 1, 2, 128, 128, torch.float32, False, 9, 0.0, 0.0, False),
+    "gemma_f32": (2, 4, 2, 2, 128, 128, torch.float32, False, 48, 32.0 ** -0.5, 50.0,
+                  False),
+    "q8_t1_f32": (2, 1, 2, 2, 128, 128, torch.float32, True, 0, 0.0, 0.0, False),
+    "q8_t7_bf16": (2, 7, 2, 2, 128, 128, torch.bfloat16, True, 0, 0.0, 0.0, False),
+    "tree_f32": (2, 10, 2, 2, 128, 128, torch.float32, False, 0, 0.0, 0.0, True),
+    "tree_gemma_q8_f32": (2, 10, 2, 2, 128, 128, torch.float32, True, 64, 32.0 ** -0.5,
+                          50.0, True),
+    "page16_dh64_bf16": (3, 7, 1, 4, 64, 16, torch.bfloat16, False, 0, 0.0, 0.0, False),
+    "page256_dh256_f32": (2, 3, 4, 1, 256, 256, torch.float32, True, 0, 0.0, 0.0, False),
+    "row_tiles_bf16": (1, 16, 8, 2, 128, 128, torch.bfloat16, False, 0, 0.0, 0.0, False),
+}
+
+
+def _paged_case(name, gen):
+    """(q, kv pair, positions, kernel kwargs) for a ``_PCASES`` entry: rows
+    mapped to scrambled disjoint page runs, the first 200 slots written, and
+    with a tree three depths of three chains past each row's frontier."""
+    from layerskip_tpu_torch.ops.paged_kv import init_paged_group
+    from layerskip_tpu_torch.config import tiny_config
+
+    b, t, g, hkv, dh, page, dtype, quant, window, scale, cap, tree = _PCASES[name]
+    cfg = tiny_config(num_key_value_heads=hkv, num_attention_heads=hkv * g,
+                      hidden_size=hkv * g * dh, dtype=dtype)
+    pool_pages, cap_pages = b * (256 // page + 1) + 3, -(-256 // page)
+    group = init_paged_group(cfg, 2, b, pool_pages=pool_pages, page_size=page, capacity=256,
+                             prompt_bucket=16, quant=quant, device="cuda")
+    perm = torch.randperm(pool_pages, generator=torch.Generator().manual_seed(5))
+    for r in range(b):
+        group.k.table[r, :cap_pages] = perm[r * cap_pages:(r + 1) * cap_pages].to(torch.int32)
+    k, v = group.k[1], group.v[1]  # one layer of a stacked pool
+    ctx = torch.tensor([150, 90, 33][:b], device="cuda")
+    k.write(torch.randn(b, 200, hkv, dh, generator=gen, device="cuda").to(dtype), 0)
+    v.write(torch.randn(b, 200, hkv, dh, generator=gen, device="cuda").to(dtype), 0)
+    kw = dict(q_heads_per_kv=g, sliding_window=window, score_scale=scale, logit_softcap=cap)
+    if tree:  # t = 1 + 3 * 3: the root, then 3 depths of 3 chains
+        scratch = ctx + 1
+        for d in range(3):
+            k.write(torch.randn(b, 3, hkv, dh, generator=gen, device="cuda").to(dtype),
+                    scratch + 3 * d)
+            v.write(torch.randn(b, 3, hkv, dh, generator=gen, device="cuda").to(dtype),
+                    scratch + 3 * d)
+        offs = torch.tensor([0] + [1 + d for d in range(3) for _ in range(3)], device="cuda")
+        pos = ctx[:, None] + offs
+        chain = torch.tensor([-1] + [c for _ in range(3) for c in range(3)], device="cuda")
+        kw.update(tree_chain=chain.expand(b, t), tree_scratch=scratch, tree_fanout=3)
+    else:
+        pos = ctx[:, None] + torch.arange(t, device="cuda")
+    q = torch.randn(b, t, hkv * g, dh, generator=gen, device="cuda").to(dtype)
+    return q, k, v, pos, kw
+
+
+def _paged_call(k, v, plain=False):
+    from layerskip_tpu_torch.ops.cuda import paged_decode as tpd
+
+    suffix = "_plain" if plain else ""
+    if hasattr(k, "scale"):
+        fn = getattr(tpd, "paged_decode_attention_q8" + suffix)
+        return lambda q, pos, **kw: fn(q, k.pool, k.scale, v.pool, v.scale, k.table, pos,
+                                       **kw)
+    fn = getattr(tpd, "paged_decode_attention" + suffix)
+    return lambda q, pos, **kw: fn(q, k.pool, v.pool, k.table, pos, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(_PCASES))
+def test_paged_kernel_matches_plain(cuda, name):
+    from layerskip_tpu_torch.ops.cuda import paged_decode as tpd
+
+    q, k, v, pos, kw = _paged_case(name, cuda)
+    fn = tpd.paged_decode_attention_q8 if hasattr(k, "scale") else tpd.paged_decode_attention
+    before = fn.launches
+    got = _paged_call(k, v)(q, pos, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = _paged_call(k, v, plain=True)(q, pos, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    tol = 5e-3 if q.dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(cuda):
+    from layerskip_tpu_torch.ops.cuda import paged_decode as tpd
+
+    q, k, v, pos, kw = _paged_case("t1_f32", cuda)
+    q8, k8, v8, _, _ = _paged_case("q8_t1_f32", cuda)
+    kw = dict(q_heads_per_kv=2)
+    q17 = torch.randn(2, 17, 4, 128, device="cuda")
+    bad = [
+        lambda: tpd.paged_decode_attention(q.bfloat16(), k.pool, v.pool, k.table, pos, **kw),
+        lambda: tpd.paged_decode_attention(q17, k.pool, v.pool, k.table,
+                                           torch.arange(17, device="cuda"), **kw),
+        lambda: tpd.paged_decode_attention(q[..., :96].contiguous(), k.pool[..., :96].contiguous(),
+                                           v.pool[..., :96].contiguous(), k.table, pos, **kw),
+        lambda: tpd.paged_decode_attention(q, k.pool, v.pool, k.table.long(), pos, **kw),
+        lambda: tpd.paged_decode_attention(q, k.pool, v.pool, k.table, pos, q_heads_per_kv=3),
+        lambda: tpd.paged_decode_attention(q, k.pool, v.pool, k.table.cpu(), pos, **kw),
+        lambda: tpd.paged_decode_attention(q8, k8.pool, v8.pool, k8.table, pos, **kw),
+        lambda: tpd.paged_decode_attention_q8(q8, k8.pool, k8.scale.float(), v8.pool, v8.scale,
+                                              k8.table, pos, **kw),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+def _session_engine():
+    """A small fp32 Llama (Dh 128, G 2) whose weights are scaled up so its
+    greedy stream varies (at std 0.02 it repeats one token)."""
+    from layerskip_tpu_torch.config import tiny_config
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.models.params import init_params
+
+    cfg = tiny_config(hidden_size=256, num_attention_heads=2, num_key_value_heads=1,
+                      intermediate_size=256, vocab_size=256, max_position_embeddings=512)
+    params = init_params(cfg, seed=3, device="cuda")
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        getattr(params.layers, name).mul_(7.5)
+    params.embed.mul_(15.0)
+    params.lm_head.mul_(7.5)
+    return Engine(params, cfg, device="cuda")
+
+
+def _serve_paged(eng, kv_quant, prompts, budgets, eos):
+    """Every request through a paged session (4 slots, pages of 16, bucket
+    64), inserted as slots free; -> ({request: tokens}, {request: (matches,
+    drafts)}, session)."""
+    from layerskip_tpu_torch.config import GenerationConfig
+
+    gen = GenerationConfig(max_steps=24, sample=False, generation_strategy="self_speculative",
+                           exit_layer=2, num_speculations=3, kv_quant=kv_quant)
+    session = eng.continuous_session(gen, batch=4, prompt_bucket=64, eos_ids=eos,
+                                     paged_pool_pages=64, page_size=16)
+    got, counts, owner, queue = {}, {}, {}, list(range(len(prompts)))
+    while queue or session.has_active():
+        slots = session.free_slots()[:len(queue)]
+        if slots:
+            take = [queue.pop(0) for _ in slots]
+            session.insert(slots, [prompts[i] for i in take],
+                           max_tokens=[budgets[i] for i in take])
+            owner.update(zip(slots, take))
+        for row, toks, _ in session.step(max_rounds=2):
+            got[owner[row]] = toks
+            counts[owner[row]] = (int(session.state.matches[row]),
+                                  int(session.state.drafts[row]))
+    return got, counts, session
+
+
+def _assert_equals_solo(eng, kv_quant, prompts, budgets):
+    """Each request's paged-session stream == its solo AR stream; on a
+    mismatch, the message gives the first differing token and the solo
+    stream's teacher-forced top-2 logit gap there (a gap near fp32 rounding
+    would be a tie, not a fault)."""
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import postprocess_output
+    from layerskip_tpu_torch.models import llama
+    from layerskip_tpu_torch.ops.kv_cache import init_kv_cache, init_quant_kv_cache
+
+    eos = (eng.cfg.vocab_size + 7,)
+    got, _, _ = _serve_paged(eng, kv_quant, prompts, budgets, eos)
+    for i, p in enumerate(prompts):
+        ar = GenerationConfig(max_steps=budgets[i], sample=False, kv_quant=kv_quant)
+        want = postprocess_output(eng.generate(p, ar, eos_ids=eos), eos, budgets[i])
+        if got[i] == want:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(got[i], want)) if a != b),
+                 min(len(got[i]), len(want)))
+        ids = torch.tensor([p + want], device="cuda")
+        init = init_quant_kv_cache if kv_quant else init_kv_cache
+        with torch.inference_mode():
+            logits = llama.forward(eng.params, eng.cfg, ids,
+                                   init(eng.cfg, 1, ids.shape[1], device="cuda"), 0).logits
+        top2 = logits[0, len(p) - 1 + j].topk(2).values
+        raise AssertionError(f"request {i}: first differs at token {j} of {len(want)}; solo "
+                             f"top-2 gap there {float(top2[0] - top2[1]):.3g}")
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_paged_session_equals_solo_through_the_kernels(cuda, kv_quant):
+    """fp32 greedy: a paged continuous session (4 slots, requests joining
+    and leaving) emits exactly each request's solo AR stream (with the int8
+    cache for the int8 pool), and every draft and verify attention call over
+    the pool launches K2 (K3 with the int8 pool)."""
+    from layerskip_tpu_torch.ops.cuda import paged_decode as tpd
+
+    eng = _session_engine()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, 256, size=n).tolist() for n in (40, 7, 60, 23, 51, 12)]
+    kernel = tpd.paged_decode_attention_q8 if kv_quant else tpd.paged_decode_attention
+    before = kernel.launches
+    _assert_equals_solo(eng, kv_quant, prompts, [24, 9, 17, 24, 5, 20])
+    assert kernel.launches > before
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("seed", [2, 3, 4])
+def test_paged_session_equals_solo_more_prompts(cuda, seed, kv_quant):
+    """The same on other prompt sets: six requests of 5-60 tokens with
+    budgets of 5-24."""
+    eng = _session_engine()
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(3, 256, size=int(n)).tolist() for n in rng.integers(5, 61, size=6)]
+    _assert_equals_solo(eng, kv_quant, prompts, [int(m) for m in rng.integers(5, 25, size=6)])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_paged_session_is_deterministic(cuda, kv_quant):
+    """The same requests through two fresh paged sessions give the same
+    streams and counters, and the same bytes in every allocatable page of
+    every layer's pool (the trash pages take colliding writes of idle rows
+    and are never read)."""
+    eng = _session_engine()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, 256, size=n).tolist() for n in (40, 7, 60, 23, 51, 12)]
+    budgets, eos = [24, 9, 17, 24, 5, 20], (eng.cfg.vocab_size + 7,)
+    runs = []
+    for _ in range(2):
+        got, counts, s = _serve_paged(eng, kv_quant, prompts, budgets, eos)
+        pools = [t[:, :s.allocator.pool_pages].clone()
+                 for g in (s.state.early, s.state.full) for kv in (g.k, g.v)
+                 for t in ((kv.pool, kv.scale) if kv_quant else (kv.pool,))]
+        runs.append((got, counts, pools))
+    (g0, c0, p0), (g1, c1, p1) = runs
+    assert g0 == g1 and c0 == c1
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
