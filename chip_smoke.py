@@ -8,9 +8,11 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      all started together;
   3. each kernel against its plain PyTorch version on the card, with its
      time, the plain version's, a library call's and the card's bound:
-     K1 (flash prefill), K2/K3 (paged decode attention, bf16/fp32 and int8
-     pools) and K4-K7 (quantized products) at the TPU kernel gate's shapes
-     and at the 7B shapes of the main paths;
+     K1 (flash prefill; fp32 on the CUDA cores, bf16 on the tensor cores),
+     K2/K3 (paged decode attention, bf16/fp32 and int8 pools) and K4-K7
+     (quantized products) at the TPU kernel gate's shapes and at the 7B
+     shapes of the main paths, K1 also at 2048-token prompts with the 7B
+     and the Llama-3.2-1B heads;
   4. exact greedy AR == self-spec in fp32 at a small width, through the
      kernels: the dense base (K1, 4 launches per prefill), int8 and int4
      bases, int8 and int4 drafters over the dense base (== dense AR), and
@@ -19,7 +21,9 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      multiple of W*E + L times;
   5. the main path at full width: random Llama-2-7B-shaped weights in bf16
      (identity tail past the exit layer), greedy AR then self-spec with
-     exit 8 and W=6, tok/s, acceptance, and launches per prefill;
+     exit 8 and W=6, tok/s, acceptance, and launches per prefill; then the
+     time to first token (``generate(max_steps=1)``) of a 200- and a
+     2000-token prompt;
   6. the quantized paths at full width, from phase 5's weights: int8 and
      int4 bases (AR and spec) and int8 and int4 drafters over the bf16 base
      (spec), with tok/s, acceptance, launches and greedy agreement;
@@ -28,12 +32,15 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      that makes requests wait for pages, eight requests over a bf16 pool
      (K2) and over the int8 pool (K3), and four sharing a prefix through
      the prefix cache; aggregate tok/s, latency, acceptance, launches,
-     each request == its solo stream up to its first near tie (at least two
-     tokens compared per request), and every served token within the solo
+     each request == its solo stream up to its first near tie (found on
+     fp32 logits of the same weights; at least two tokens compared per
+     request), and every served token within the solo
      streams' own bf16 noise of the teacher-forced greedy choice;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
 Every kernel count is set to 0 just before each run of phases 5, 6 and 7
-and read just after it.
+and read just after it; every K1 launch of those bf16 phases must have
+taken the tensor-core route, and every one of phase 4 (fp32) the CUDA-core
+route.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing anything.
@@ -117,10 +124,15 @@ def kernel_counters():
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
+    kernel_counters()["flash_prefill"].tensor_core_launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """Launches per kernel, and of K1's those of its tensor-core (bf16)
+    route as ``flash_prefill_tensor_core``."""
+    counts = {name: fn.launches for name, fn in kernel_counters().items()}
+    counts["flash_prefill_tensor_core"] = kernel_counters()["flash_prefill"].tensor_core_launches
+    return counts
 
 
 # ------------------------------------------------------------ phase 3
@@ -156,6 +168,12 @@ def flash_cases(full_cache_len):
         ("flash_prefill_ragged", 2, 200, 700, 37, 2, 2, 128, 0, 0.0, 0.0, f32, 0.005),
         ("flash_prefill_dh64", 1, 256, 512, 100, 2, 2, 64, 0, 0.0, 0.0, f32, 0.005),
         ("flash_prefill_7b_bf16", 1, 256, full_cache_len, 0, 32, 1, 128, 0, 0.0, 0.0,
+         bf16, 0.02),
+        # long prompts: the 7B heads, and the Llama-3.2-1B preset's (G 4, Dh 64);
+        # S is the engine's cache for a 2000-token prompt (bucket 2048)
+        ("flash_prefill_7b_long_bf16", 1, 2048, 2560, 0, 32, 1, 128, 0, 0.0, 0.0,
+         bf16, 0.02),
+        ("flash_prefill_1b_long_bf16", 1, 2048, 2560, 0, 8, 4, 64, 0, 0.0, 0.0,
          bf16, 0.02),
     ]
 
@@ -541,8 +559,9 @@ def exact_fp32_greedy():
 
     def launched(n, want):
         """Exact counts for the kernels in ``want`` (None: at least one), 0
-        for every other quantized product, one K1 launch per layer."""
-        return n["flash_prefill"] == nl and all(
+        for every other quantized product, one K1 launch per layer, on
+        K1's fp32 (CUDA-core) route."""
+        return n["flash_prefill"] == nl and n["flash_prefill_tensor_core"] == 0 and all(
             (n[k] > 0 if want.get(k, 0) is None else n[k] == want.get(k, 0))
             for k in quant)
 
@@ -686,6 +705,18 @@ def teacher_forced(params, cfg, prompt, toks, kv_quant=False):
         return llama.forward(params, cfg, ids, cache, 0).logits[0, len(prompt) - 1:-1]
 
 
+def fp32_model(params, cfg):
+    """The same weights in fp32 (bf16 to fp32 is exact) and an fp32 config:
+    a forward free of bf16 rounding in its activations."""
+    layers = dataclasses.replace(params.layers, **{
+        f.name: getattr(params.layers, f.name).float()
+        for f in dataclasses.fields(params.layers)})
+    lm_head = None if params.lm_head is None else params.lm_head.float()
+    return (dataclasses.replace(params, embed=params.embed.float(), layers=layers,
+                                final_norm=params.final_norm.float(), lm_head=lm_head),
+            dataclasses.replace(cfg, dtype=torch.float32))
+
+
 def near_tie(params, cfg, prompt, toks, kv_quant=False):
     """(first position whose top-2 logit gap is under NEAR_TIE, the teacher-
     forced argmax's agreement with ``toks``, all logits finite) from one
@@ -722,7 +753,38 @@ def generate_timed(eng, prompt, gen_cfg, eos):
     return toks, secs, int(out.matches), int(out.drafts), read_counts()
 
 
-def full_width():
+TTFT_PROMPTS = ((200, "flash_prefill_7b_bf16"), (2000, "flash_prefill_7b_long_bf16"))
+
+
+def time_to_first_token(eng, cfg, eos, kres):
+    """Wall ms of ``generate(max_steps=1)`` (the prompt's prefill and one
+    token) for a 200- and a 2000-token prompt, each after a warm-up run of
+    the same prompt, with K1's launches and their device time at phase 3's
+    time for that prefill shape (buckets 256 and 2048). Returns (stats,
+    launch counts summed over the timed runs)."""
+    from layerskip_tpu_torch.config import GenerationConfig
+
+    rng = np.random.default_rng(4)
+    gen_cfg = GenerationConfig(max_steps=1, sample=False, generation_strategy="autoregressive")
+    stats, total = {}, {}
+    for n, case in TTFT_PROMPTS:
+        prompt = rng.integers(3, cfg.vocab_size, size=n).tolist()
+        eng.generate(prompt, gen_cfg, eos_ids=eos)
+        torch.cuda.synchronize()
+        toks, secs, _, _, counts = generate_timed(eng, prompt, gen_cfg, eos)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        k1 = counts["flash_prefill"]
+        stats[n] = dict(ms=secs * 1e3, tokens=len(toks), k1_launches=k1,
+                        k1_device_ms=k1 * kres[case]["ms"], k1_case=case)
+    log(f"[7b ttft] generate(max_steps=1), wall ms after a warm-up: " + "; ".join(
+        f"{n}-token prompt {s['ms']:.2f} ms, K1 {s['k1_launches']} launches x "
+        f"{kres[s['k1_case']]['ms']:.4f} ms ({s['k1_case']}) = {s['k1_device_ms']:.3f} ms"
+        for n, s in stats.items()))
+    return stats, total
+
+
+def full_width(kres):
     from layerskip_tpu_torch.config import GenerationConfig, llama2_7b_config
     from layerskip_tpu_torch.generation.engine import Engine
     from layerskip_tpu_torch.models.params import make_random_params
@@ -771,9 +833,16 @@ def full_width():
     ok = (finite and acceptance >= 0.9 and agree >= first_tie
           and len(ar_toks) == FULL_STEPS and len(sp_toks) == FULL_STEPS
           and launches == 2 * cfg.num_hidden_layers
-          and sum(counts.values()) == launches)  # no quantized product
+          and counts["flash_prefill_tensor_core"] == launches  # bf16: tensor cores
+          and all(v == 0 for k, v in counts.items()  # no quantized product
+                  if not k.startswith("flash_prefill")))
+    ttft, ttft_counts = time_to_first_token(eng, cfg, eos, kres)
+    ok &= all(s["k1_launches"] == cfg.num_hidden_layers and s["tokens"] == 1
+              for s in ttft.values())
+    for k, v in ttft_counts.items():
+        counts[k] += v
     stats = dict(ar_tok_s=ar_tps, spec_tok_s=sp_tps, speedup=sp_tps / ar_tps,
-                 acceptance=acceptance, launches=launches)
+                 acceptance=acceptance, launches=launches, ttft=ttft)
     return ok, stats, counts, (params, cfg, prompt, ar_toks, first_tie)
 
 
@@ -946,14 +1015,19 @@ def serving_full_width(params, cfg, spec_tok_s):
     pool (K2) and once with the int8 pool (K3); then four requests sharing
     a 128-token prefix with the prefix cache (three hits). Every request
     must equal its solo ``generate`` stream up to its first near tie (by
-    the logits of its own cache type), and each run must compare at least
+    the logits of its own cache type, below), and each run must compare at least
     two tokens per request that way. Since this random model's first near
     ties come within a few tokens, every served token is also held to the
     teacher-forced logits given the served history: its shortfall from the
     top logit may be at most twice the larger of NEAR_TIE and the solo
     streams' own worst shortfall (the bf16 noise between the decode and
     prefill paths, which the reference path shows too; a wrong KV read or
-    a mixed-up row falls whole logits short)."""
+    a mixed-up row falls whole logits short). Near ties are found on the
+    teacher-forced logits of the same weights in fp32, since a bf16
+    teacher-forced pass is itself off by a few hundredths, enough to lift a
+    true near tie past NEAR_TIE; over the int8 pool also on the bf16 pass,
+    since the fp32 pass quantizes its own fp32 keys and values, whose int8
+    codes differ from the pool's at rounding edges."""
     import dataclasses as dc
 
     from layerskip_tpu_torch.config import GenerationConfig
@@ -975,14 +1049,17 @@ def serving_full_width(params, cfg, spec_tok_s):
                            num_speculations=FULL_W)
     eos = (cfg.vocab_size + 7,)
     solo_cache = {}
+    params32, cfg32 = fp32_model(params, cfg)
 
     def solo(p, m, kv_quant):
         key = (tuple(p), m, kv_quant)
         if key not in solo_cache:
             out = eng.generate(p, dc.replace(gen, max_steps=m, kv_quant=kv_quant), eos_ids=eos)
             toks = out.tokens[0, :int(out.num_tokens[0])].tolist()[:m]
-            solo_cache[key] = (toks, near_tie(params, cfg, p, toks, kv_quant)[0],
-                               greedy_shortfall(params, cfg, p, toks, kv_quant))
+            tie = near_tie(params32, cfg32, p, toks, kv_quant)[0]
+            if kv_quant:
+                tie = min(tie, near_tie(params, cfg, p, toks, kv_quant)[0])
+            solo_cache[key] = (toks, tie, greedy_shortfall(params, cfg, p, toks, kv_quant))
         return solo_cache[key]
 
     serve_run(eng, dc.replace(gen, max_steps=8), prompts[:2], [8, 8], pool)  # warm-up
@@ -1074,7 +1151,7 @@ def main() -> int:
     ok_fp32 = exact_fp32_greedy() & exact_fp32_paged()
     log(f"[phase 4] {time.time() - t0:.1f}s")
     t0 = time.time()
-    ok_full, stats, counts, ctx = full_width()
+    ok_full, stats, counts, ctx = full_width(kres)
     log(f"[phase 5] {time.time() - t0:.1f}s")
     t0 = time.time()
     ok_quant, qstats, qcounts = quantized_full_width(*ctx)
@@ -1085,6 +1162,12 @@ def main() -> int:
     for more in (qcounts, scounts):
         for k, v in more.items():
             counts[k] += v
+    # phases 5-7 run in bf16: every K1 launch must take the tensor-core route
+    ok_route = counts["flash_prefill_tensor_core"] == counts["flash_prefill"] > 0
+    log(f"[k1 route] phases 5-7: {counts['flash_prefill']} K1 launches, "
+        f"{counts['flash_prefill_tensor_core']} on the tensor-core route -> "
+        f"{'PASS' if ok_route else 'FAIL'}")
+    ok_full &= ok_route
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} {json.dumps(stats)} "
         f"{json.dumps(qstats)} {json.dumps(sstats)} launches={json.dumps(counts)} "

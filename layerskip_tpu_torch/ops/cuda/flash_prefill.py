@@ -4,11 +4,15 @@ Counterpart of ``layerskip_tpu/ops/pallas/flash_prefill.py``. The kernel
 (``csrc/flash_prefill.cu``) computes causal GQA attention of a prompt block
 over the KV cache with a scalar past offset, an optional runtime window, a
 score scale and a softcap, with an online fp32 softmax. Its source says what
-bounds it on the H100 and how its design answers that.
+bounds it on the H100 and how its design answers that. It has two routes:
+bfloat16 inputs run on the tensor cores (wgmma, with K/V tiles copied
+asynchronously), float32 inputs on the CUDA cores in full fp32.
 
 ``flash_prefill_attention`` launches the kernel for CUDA tensors and raises
 on anything the kernel does not take; only CPU tensors go to
 ``flash_prefill_attention_plain``, the same function written out in torch.
+It counts its launches in ``flash_prefill_attention.launches`` and, of
+those, the tensor-core route's in ``flash_prefill_attention.tensor_core_launches``.
 """
 
 from __future__ import annotations
@@ -73,6 +77,11 @@ def _check_cuda_args(q, k, v, g):
             raise ValueError(f"flash_prefill: {name} must be 4-D with a contiguous "
                              f"head_dim, got shape {tuple(x.shape)} strides {x.stride()}")
     b, t, hq, dh = q.shape
+    if q.dtype == torch.bfloat16:  # TMA: 16-byte aligned bases and row strides
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(x.stride(i) % 8 for i in range(3)):
+                raise ValueError(f"flash_prefill: bf16 {name} needs 16-byte aligned rows, "
+                                 f"got strides {x.stride()} at {x.data_ptr():#x}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_prefill: head_dim {dh} not in {HEAD_DIMS}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh \
@@ -121,10 +130,13 @@ def flash_prefill_attention(
     if rc != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed: cudaError {rc}")
     flash_prefill_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_prefill_attention.tensor_core_launches += 1
     return out
 
 
 flash_prefill_attention.launches = 0
+flash_prefill_attention.tensor_core_launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: against their plain versions,
-through the engine, and the wrappers' refusals. Every test here needs a
+through the engine, and the wrappers' refusals; K1's tensor-core (bf16)
+route also for bit-for-bit determinism and invariance to the batch, the
+other rows and the keys no query sees. Every test here needs a
 CUDA device and nvcc and skips without them.
 
 This file imports no JAX, so it runs on a machine without it:
@@ -67,12 +69,101 @@ def test_kernel_matches_plain(cuda, name):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 32, 2, 128, device="cuda")
     kv = torch.randn(1, 64, 1, 128, device="cuda")
+    # bf16 rows that start 2 bytes past a 16-byte boundary
+    q_off = torch.randn(q.numel() + 1, device="cuda").bfloat16()[1:].view(q.shape)
+    kv_off = torch.randn(kv.numel() + 1, device="cuda").bfloat16()[1:].view(kv.shape)
     for bad_q, bad_kv in ((q.half(), kv.half()),  # dtype
                           (q[..., ::2], kv[..., ::2]),  # strided head_dim
                           (q, kv.cpu()),  # devices differ
-                          (q[..., :96].contiguous(), kv[..., :96].contiguous())):  # Dh 96
+                          (q[..., :96].contiguous(), kv[..., :96].contiguous()),  # Dh 96
+                          (q_off, kv_off)):  # misaligned bf16 rows
         with pytest.raises(ValueError):
             tflash.flash_prefill_attention(bad_q, bad_kv, bad_kv, 0, q_heads_per_kv=2)
+
+
+# The bf16 tensor-core route at tile edges (64-query blocks; 64-key tiles,
+# 32 at Dh 256): (B, T, S, past, Hkv, G, Dh, window, scale, softcap)
+_TC_CASES = {
+    "ragged_t_and_s_dh128": (2, 100, 301, 37, 2, 1, 128, 0, 0.0, 0.0),
+    "window_across_tiles_g4_dh64": (1, 150, 333, 20, 2, 4, 64, 50, 0.0, 0.0),
+    "softcap_dh256": (1, 80, 150, 40, 1, 2, 256, 0, 32.0 ** -0.5, 50.0),
+    "masked_rows_dh128": (1, 64, 40, 30, 1, 1, 128, 8, 0.0, 0.0),
+    "g4_window_softcap_dh128": (2, 200, 260, 50, 2, 4, 128, 96, 0.0, 30.0),
+    "t17_dh64": (1, 17, 17, 0, 1, 1, 64, 0, 0.0, 0.0),
+    "window_dh256_g4": (1, 130, 200, 60, 1, 4, 256, 40, 0.0, 0.0),
+    # long walks over the K/V ring (many tiles per block, several waves)
+    "long_window_softcap_dh128": (2, 900, 1100, 100, 4, 4, 128, 300, 0.0, 30.0),
+    "long_dh64": (1, 2100, 2200, 50, 8, 4, 64, 0, 0.0, 0.0),
+    "long_dh256": (1, 1500, 1600, 0, 8, 4, 256, 0, 0.0, 0.0),
+}
+
+
+def _tc_inputs(case, gen, s_extra=0):
+    """q, and k/v as one layer of a stacked cache, for a _TC_CASES entry;
+    ``s_extra`` appends that many more keys past S."""
+    b, t, s, past, hkv, g, dh, window, scale, cap = _TC_CASES[case]
+    bf16 = torch.bfloat16
+    q = torch.randn(b, t, hkv * g, dh, generator=gen, device="cuda").to(bf16)
+    k = torch.randn(2, b, s + s_extra, hkv, dh, generator=gen, device="cuda").to(bf16)[1]
+    v = torch.randn(2, b, s + s_extra, hkv, dh, generator=gen, device="cuda").to(bf16)[1]
+    kw = dict(q_heads_per_kv=g, sliding_window=window, score_scale=scale, logit_softcap=cap)
+    return q, k, v, past, kw
+
+
+@pytest.mark.parametrize("case", sorted(_TC_CASES))
+def test_tensor_core_route_matches_plain(cuda, case):
+    q, k, v, past, kw = _tc_inputs(case, cuda)
+    fn = tflash.flash_prefill_attention
+    before, before_tc = fn.launches, fn.tensor_core_launches
+    got = fn(q, k, v, past, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tensor_core_launches) == (before + 1, before_tc + 1)
+    want = tflash.flash_prefill_attention_plain(q, k, v, past, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    if case == "masked_rows_dh128":  # rows past S + window - 1 see no key
+        assert (got[:, 17:] == 0).all() and (got[:, :10] != 0).any()
+
+
+def test_tensor_core_route_is_deterministic(cuda):
+    q, k, v, past, kw = _tc_inputs("g4_window_softcap_dh128", cuda)
+    first = tflash.flash_prefill_attention(q, k, v, past, **kw)
+    for _ in range(3):
+        assert torch.equal(tflash.flash_prefill_attention(q, k, v, past, **kw), first)
+
+
+@pytest.mark.parametrize("case", ["ragged_t_and_s_dh128", "window_across_tiles_g4_dh64",
+                                  "softcap_dh256", "long_window_softcap_dh128"])
+def test_tensor_core_route_is_row_invariant(cuda, case):
+    """A batch row run alone equals the same row inside B = 3 beside other
+    rows, bit for bit."""
+    q, k, v, past, kw = _tc_inputs(case, cuda)
+    alone = tflash.flash_prefill_attention(q[:1], k[:1], v[:1], past, **kw)
+    q3, k3, v3, _, _ = _tc_inputs(case, cuda)
+    q3 = torch.cat([q3[:1], q[:1], q3[:1] * 2])
+    k3 = torch.cat([k3[:1], k[:1], k3[:1].flip(1)])
+    v3 = torch.cat([v3[:1], v[:1], -v3[:1]])
+    assert torch.equal(tflash.flash_prefill_attention(q3, k3, v3, past, **kw)[1], alone[0])
+
+
+@pytest.mark.parametrize("case", ["ragged_t_and_s_dh128", "masked_rows_dh128",
+                                  "window_dh256_g4", "t17_dh64", "long_dh64"])
+def test_tensor_core_route_ignores_keys_it_cannot_see(cuda, case):
+    """The same prompt over its S and over a longer S whose extra keys no
+    query sees (a paged insert's gathered view against the contiguous
+    cache), bit for bit, and unchanged when those keys change."""
+    q, k, v, past, kw = _tc_inputs(case, cuda, s_extra=300)
+    s = _TC_CASES[case][2]
+    short = tflash.flash_prefill_attention(q, k[:, :s], v[:, :s], past, **kw)
+    if past + q.shape[1] <= s:  # every extra key lies past the causal frontier
+        assert torch.equal(tflash.flash_prefill_attention(q, k, v, past, **kw), short)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, s:], v2[:, s:] = 1e4, -3e4
+        assert torch.equal(tflash.flash_prefill_attention(q, k2, v2, past, **kw), short)
+    # the visible keys copied into a fresh contiguous buffer
+    kc, vc = k[:, :s].contiguous(), v[:, :s].contiguous()
+    assert torch.equal(tflash.flash_prefill_attention(q, kc, vc, past, **kw), short)
 
 
 def test_greedy_spec_equals_ar_through_the_kernel(cuda):

@@ -5,11 +5,15 @@ The same numpy inputs go through both packages. What is held:
   * quantized weights and int8 KV entries are bit-identical (``q`` equal,
     scales equal);
   * the plain versions of K4-K7 match the JAX Pallas kernels in interpret
-    mode in fp32 (atol 1e-4: the same fp32 sums in another order; interpret
-    mode computes the int4 kernels in fp32 even for bf16 inputs, so the int4
-    comparison is fp32 only) and the JAX ``_qdot`` in bf16 (within 1.5 bf16
-    ulps of the largest output: both round the same fp32 sums once, but
-    ``_qdot`` rounds each int4 half-sum and their sum in bf16);
+    mode in fp32 (within 1e-5 of the largest output: the same fp32 sums in
+    another order, whose rounding grows with the outputs' size, ~89 at K =
+    1792 in the int4 gate case, where a fixed 1e-4 failed on some machines
+    and thread counts; one wrong nibble is off by a whole scale step, far
+    above it; interpret mode computes the int4 kernels in fp32 even for
+    bf16 inputs, so the int4 comparison is fp32 only) and the JAX ``_qdot``
+    in bf16 (within 1.5 bf16 ulps of the largest output: both round the
+    same fp32 sums once, but ``_qdot`` rounds each int4 half-sum and their
+    sum in bf16);
   * quantized forward logits match in fp32 (atol 3e-4, rtol 1e-3, the
     tolerance the JAX suite holds against HF torch);
   * greedy streams, ``num_tokens`` and ``matches``/``drafts`` are EQUAL to
@@ -181,7 +185,7 @@ def test_plain_kernel_matches_pallas_interpret_fp32(name):
     got = _plain(name, tx, tq)
     want = np.asarray(_jax_kernel(name, jx, jq))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
 @pytest.mark.parametrize("name", sorted(_GATE))
