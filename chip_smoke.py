@@ -12,7 +12,8 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      K2/K3 (paged decode attention, bf16/fp32 and int8 pools) and K4-K7
      (quantized products) at the TPU kernel gate's shapes and at the 7B
      shapes of the main paths, K1 also at 2048-token prompts with the 7B
-     and the Llama-3.2-1B heads;
+     and the Llama-3.2-1B heads, K2/K3 also at ~2000-key contexts (B 4,
+     and B 1 with one live slot);
   4. exact greedy AR == self-spec in fp32 at a small width, through the
      kernels: the dense base (K1, 4 launches per prefill), int8 and int4
      bases, int8 and int4 drafters over the dense base (== dense AR), and
@@ -328,13 +329,15 @@ def paged_cases():
     scale, softcap, tree, tol). The gate's ten paged cases and tolerances
     (scripts/kernel_gate.py: fp32, pages of 128, capacity 256, 200 written
     keys, rows at 150 and 90; tol 0.005, 0.01 with the Gemma score math,
-    0.2 for an int8 pool), pages of 16 and 256, and the 7B decode shapes
-    of phase 7 (B 4, Hkv 32, G 1, Dh 128, page 128, about 400 keys of
-    context, T 1 and 7, bf16 and int8 pools; tol one bf16 rounding of an
-    output below 2, 0.02)."""
+    0.2 for an int8 pool), pages of 16 and 256, the 7B decode shapes of
+    phase 7 (B 4, Hkv 32, G 1, Dh 128, page 128, about 400 keys of context,
+    T 1 and 7, bf16 and int8 pools; tol one bf16 rounding of an output
+    below 2, 0.02), and the same at the context of phase 5's 2000-token
+    prompts (rows of 1904-2047 keys; B 4, and B 1 with one live slot)."""
     f32, bf16 = torch.float32, torch.bfloat16
     gate = (150, 90)
     ctx7b = (391, 350, 300, 377)
+    long7b = (2046, 1987, 1903, 2011)
     return [
         ("paged_decode_t1", 2, 1, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, False, 5e-3),
         ("paged_decode_t7", 2, 7, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, False, 5e-3),
@@ -363,20 +366,32 @@ def paged_cases():
          False, 0.02),
         ("paged_decode_q8_7b_t7_bf16", 4, 7, 1, 32, 128, 128, ctx7b, bf16, True, 0, 0.0, 0.0,
          False, 0.02),
+        ("paged_decode_7b_long_t1_bf16", 4, 1, 1, 32, 128, 128, long7b, bf16, False, 0, 0.0,
+         0.0, False, 0.02),
+        ("paged_decode_q8_7b_long_t1_bf16", 4, 1, 1, 32, 128, 128, long7b, bf16, True, 0, 0.0,
+         0.0, False, 0.02),
+        ("paged_decode_7b_b1_long_t1_bf16", 1, 1, 1, 32, 128, 128, long7b[:1], bf16, False, 0,
+         0.0, 0.0, False, 0.02),
     ]
 
 
-def paged_case_tensors(b, t, g, hkv, dh, page, rows, dtype, quant, tree, gen):
+def paged_capacity(rows):
+    """Keys per slot of a paged case: the gate's 256, phase 7's slots (392)
+    for the 7B decode shapes, 2048 at the long context."""
+    if max(rows) < 256:
+        return 256
+    return 392 if max(rows) < 392 else 2048
+
+
+def paged_case_tensors(b, t, g, hkv, dh, page, rows, dtype, quant, tree, gen, cap):
     """Pools of one layer (of a two-layer stack) with each row mapped to
-    scrambled pages (the capacity of phase 7's slots, 392 keys, for the 7B
-    shapes; 256 for the gate's), written up to each row's frontier, plus the
-    tree's three depths of three chains past it. Returns the k and v
-    buffers, the same keys and values unquantized in an fp32 pool, q, the
-    positions and the tree arguments."""
+    scrambled pages of ``cap`` keys a slot, written up to each row's
+    frontier, plus the tree's three depths of three chains past it. Returns
+    the k and v buffers, the same keys and values unquantized in an fp32
+    pool, q, the positions and the tree arguments."""
     from layerskip_tpu_torch.config import tiny_config
     from layerskip_tpu_torch.ops.paged_kv import init_paged_group, paged_geometry
 
-    cap = 392 if b == 4 else 256
     cap_pages, _, maxp = paged_geometry(cap, page, 256)
     pool_pages = b * cap_pages + 3
     table = torch.full((b, maxp), pool_pages, dtype=torch.int32)
@@ -438,6 +453,36 @@ def paged_bound(q, hkv, n_slots, pos, window, tree_kw, quant):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
+def paged_calls(q, k, v, pos, kw):
+    """(kernel, plain version) of K2, or K3 for an int8 pair, as callables."""
+    from layerskip_tpu_torch.ops.cuda import paged_decode as pd
+
+    if hasattr(k, "scale"):
+        return (lambda: pd.paged_decode_attention_q8(
+                    q, k.pool, k.scale, v.pool, v.scale, k.table, pos, **kw),
+                lambda: pd.paged_decode_attention_q8_plain(
+                    q, k.pool, k.scale, v.pool, v.scale, k.table, pos, **kw))
+    return (lambda: pd.paged_decode_attention(q, k.pool, v.pool, k.table, pos, **kw),
+            lambda: pd.paged_decode_attention_plain(q, k.pool, v.pool, k.table, pos, **kw))
+
+
+def paged_sdpa_call(q, k, v, pos, window, scale):
+    """One ``scaled_dot_product_attention`` call over a contiguous view of
+    the pair gathered (and dequantized to q's dtype) ahead of time, with the
+    causal and window mask: the library yardstick of K2/K3."""
+    import torch.nn.functional as F
+
+    kd, vd = (x.gather_view(q.dtype).transpose(1, 2) for x in (k, v))
+    kp = torch.arange(kd.shape[2], device="cuda")
+    mask = kp[None, None, :] <= pos[:, :, None]
+    if window:
+        mask &= kp[None, None, :] > pos[:, :, None] - window
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask[:, None], scale=scale or q.shape[-1] ** -0.5,
+        enable_gqa=True)
+
+
 def check_paged_kernels():
     """K2/K3 against their plain versions at paged_cases(); for an int8 pool
     also against the same function over the unquantized keys (the gate's
@@ -445,28 +490,17 @@ def check_paged_kernels():
     fp32 rounding (5e-3). ``library_ms`` is SDPA over a contiguous view
     gathered ahead of time and timed alone: no single PyTorch call reads
     through a page table."""
-    import torch.nn.functional as F
-
     from layerskip_tpu_torch.ops.cuda import paged_decode as pd
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     results, ok = {}, True
     for (name, b, t, g, hkv, dh, page, rows, dtype, quant, window, scale, cap, tree,
          tol) in paged_cases():
-        k, v, rk, rv, q, pos, tree_kw = paged_case_tensors(b, t, g, hkv, dh, page, rows,
-                                                           dtype, quant, tree, gen)
+        k, v, rk, rv, q, pos, tree_kw = paged_case_tensors(
+            b, t, g, hkv, dh, page, rows, dtype, quant, tree, gen, paged_capacity(rows))
         kw = dict(q_heads_per_kv=g, sliding_window=window, score_scale=scale,
                   logit_softcap=cap, **tree_kw)
-        if quant:
-            fn = lambda: pd.paged_decode_attention_q8(  # noqa: E731
-                q, k.pool, k.scale, v.pool, v.scale, k.table, pos, **kw)
-            plain = lambda: pd.paged_decode_attention_q8_plain(  # noqa: E731
-                q, k.pool, k.scale, v.pool, v.scale, k.table, pos, **kw)
-        else:
-            fn = lambda: pd.paged_decode_attention(  # noqa: E731
-                q, k.pool, v.pool, k.table, pos, **kw)
-            plain = lambda: pd.paged_decode_attention_plain(  # noqa: E731
-                q, k.pool, v.pool, k.table, pos, **kw)
+        fn, plain = paged_calls(q, k, v, pos, kw)
         got = fn()
         torch.cuda.synchronize()
         want = plain()
@@ -490,17 +524,7 @@ def check_paged_kernels():
         plain_ms = time_cold_ms(plain, 5)
         library_ms = None
         if not tree and not cap:
-            kd = (k.gather_view(dtype) if quant else k.gather_view()).transpose(1, 2)
-            vd = (v.gather_view(dtype) if quant else v.gather_view()).transpose(1, 2)
-            kp = torch.arange(kd.shape[2], device="cuda")
-            mask = kp[None, None, :] <= pos[:, :, None]
-            if window:
-                mask &= kp[None, None, :] > pos[:, :, None] - window
-            qt = q.transpose(1, 2)
-            library_ms = time_cold_ms(lambda: F.scaled_dot_product_attention(
-                qt, kd, vd, attn_mask=mask[:, None], scale=scale or dh ** -0.5,
-                enable_gqa=True))
-            del kd, vd
+            library_ms = time_cold_ms(paged_sdpa_call(q, k, v, pos, window, scale))
         bound_ms, bound_by = paged_bound(q, hkv, k.max_pages * page, pos, window, tree_kw,
                                          quant)
         ok &= passed

@@ -20,7 +20,10 @@ kernel does not take; only CPU tensors go to its ``_plain`` version, which
 computes the kernel's function as one masked softmax: K2 rounds p to the
 pool's dtype before PV; K3 dequantizes k and v in fp32 and keeps p in fp32
 (the TPU kernel's numerics, not the gathered fallback's, which dequantizes
-to q's dtype first).
+to q's dtype first). The kernels split each row's keys into chunks of
+``chunk_keys`` keys over ``SPLITS`` blocks and merge the partial softmaxes
+(the source's header); the plain versions take one softmax over all keys,
+which is the same function up to fp32 rounding.
 """
 
 from __future__ import annotations
@@ -34,6 +37,15 @@ HEAD_DIMS = (64, 128, 256)
 MAX_QUERY = 16  # the kernels' short-query limit: drafts and verify windows
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2  # kv dtype code of the int8 pool
+SPLITS = 8  # virtual ranks that split one row's chunks (kSplits in csrc/paged_decode.cu)
+_CHUNK_K_BYTES = 8192  # K bytes of one chunk (kChunkKBytes)
+
+
+def chunk_keys(head_dim: int, kv_dtype: torch.dtype) -> int:
+    """Keys per chunk of the kernels' split for a pool dtype: 8 KB of K, at
+    least 16 keys (``Geo::kChunk`` in csrc/paged_decode.cu)."""
+    esize = torch.tensor([], dtype=kv_dtype).element_size()
+    return max(16, _CHUNK_K_BYTES // (head_dim * esize))
 
 
 # ---------------------------------------------------------------- plain
@@ -67,9 +79,10 @@ def _visible(q_pos, s, window, chain, scratch, fanout) -> torch.Tensor:
     return mask
 
 
-def _attend(q, k, v, q_positions, *, q_heads_per_kv, sliding_window, tree_chain,
-            tree_scratch, tree_fanout, score_scale, logit_softcap, p_dtype):
-    """The kernels' function over a gathered [B, S, Hkv, Dh] view."""
+def _masked_scores(q, k, q_positions, *, q_heads_per_kv, sliding_window, tree_chain,
+                   tree_scratch, tree_fanout, score_scale, logit_softcap):
+    """[B, Hkv, G, T, S] fp32 scores of q over a gathered [B, S, Hkv, Dh] k:
+    scaled, softcapped and masked to NEG_INF."""
     b, t, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = q_heads_per_kv
@@ -84,7 +97,13 @@ def _attend(q, k, v, q_positions, *, q_heads_per_kv, sliding_window, tree_chain,
         cap = float(logit_softcap)
         scores = cap * torch.tanh(scores / cap)
     mask = _visible(q_pos.long(), s, window, chain, scratch, fanout)
-    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    return torch.where(mask[:, None, None], scores, NEG_INF)
+
+
+def _attend(q, k, v, q_positions, *, p_dtype, **kw):
+    """The kernels' function over a gathered [B, S, Hkv, Dh] view."""
+    b, t, hq, dh = q.shape
+    scores = _masked_scores(q, k, q_positions, **kw)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(scores > NEG_INF * 0.5, torch.exp(scores - m), 0.0)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # [B, Hkv, G, T, 1]
@@ -170,11 +189,15 @@ def paged_decode_attention_q8(q, k_pool, k_scale, v_pool, v_scale, table, q_posi
                                                table, q_positions, **kw)
     if k_pool.dtype != torch.int8:
         raise ValueError(f"paged_decode_q8: pool dtype {k_pool.dtype}, want int8")
+    if k_pool.dim() != 4 or k_pool.shape[2] % 8:
+        raise ValueError(f"paged_decode_q8: pages of {tuple(k_pool.shape)[2:3]} slots; the "
+                         "kernel copies scales in runs of 16 bytes, so pages of a "
+                         "multiple of 8")
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         if (s.device != q.device or s.dtype != torch.bfloat16 or not s.is_contiguous()
-                or tuple(s.shape) != tuple(k_pool.shape[:3])):
+                or tuple(s.shape) != tuple(k_pool.shape[:3]) or s.data_ptr() % 16):
             raise ValueError(f"paged_decode_q8: {name} {tuple(s.shape)} {s.dtype} on "
-                             f"{s.device}, want a contiguous bf16 "
+                             f"{s.device}, want a contiguous, 16-byte aligned bf16 "
                              f"{tuple(k_pool.shape[:3])} on {q.device}")
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, table, q_positions, **kw)
     paged_decode_attention_q8.launches += 1

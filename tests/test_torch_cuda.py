@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: against their plain versions,
 through the engine, and the wrappers' refusals; K1's tensor-core (bf16)
-route also for bit-for-bit determinism and invariance to the batch, the
-other rows and the keys no query sees. Every test here needs a
+route and K2/K3 also for bit-for-bit determinism and invariance to the
+batch, the other rows and the keys no query sees. Every test here needs a
 CUDA device and nvcc and skips without them.
 
 This file imports no JAX, so it runs on a machine without it:
@@ -17,6 +17,8 @@ fp32 sums: 1e-5 of the largest output in fp32, and one bf16 ulp (2^-7) of
 the largest output in bf16, where the single final rounding may fall on
 either side.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -335,29 +337,61 @@ _PCASES = {
     "page16_dh64_bf16": (3, 7, 1, 4, 64, 16, torch.bfloat16, False, 0, 0.0, 0.0, False),
     "page256_dh256_f32": (2, 3, 4, 1, 256, 256, torch.float32, True, 0, 0.0, 0.0, False),
     "row_tiles_bf16": (1, 16, 8, 2, 128, 128, torch.bfloat16, False, 0, 0.0, 0.0, False),
+    # long rows (many chunks on every block of the split) at the row
+    # positions given last, and rows whose window leaves one chunk visible
+    "long_t1_bf16": (2, 1, 1, 4, 128, 128, torch.bfloat16, False, 0, 0.0, 0.0, False,
+                     (2100, 1500)),
+    "long_q8_t7_page16_bf16": (2, 7, 1, 4, 128, 16, torch.bfloat16, True, 0, 0.0, 0.0, False,
+                               (2090, 2047)),
+    "long_g4_softcap_page256_dh64_f32": (1, 4, 4, 2, 64, 256, torch.float32, False, 0, 0.0,
+                                         50.0, False, (3000,)),
+    "long_tree_q8_f32": (2, 10, 2, 2, 128, 128, torch.float32, True, 0, 0.0, 0.0, True,
+                         (2050, 1111)),
+    "one_chunk_window_bf16": (2, 1, 1, 4, 128, 128, torch.bfloat16, False, 16, 0.0, 0.0, False,
+                              (2015, 991)),
+    "one_chunk_window_q8_bf16": (2, 1, 1, 4, 128, 128, torch.bfloat16, True, 16, 0.0, 0.0,
+                                    False, (2015, 991)),
+    # three batch rows of other lengths, for row invariance
+    "rows3_t7_g2_bf16": (3, 7, 2, 2, 128, 128, torch.bfloat16, False, 0, 0.0, 0.0, False,
+                         (1000, 150, 33)),
+    "rows3_q8_t1_bf16": (3, 1, 1, 2, 128, 16, torch.bfloat16, True, 0, 0.0, 0.0, False,
+                         (2100, 300, 40)),
+    "rows3_tree_f32": (3, 10, 2, 2, 128, 128, torch.float32, False, 0, 0.0, 0.0, True,
+                       (700, 90, 33)),
+    # the 7B heads: alone, a row's blocks form clusters of 8; beside three
+    # others, of fewer (the launch fits the card in one wave)
+    "rows4_7b_heads_bf16": (4, 1, 1, 32, 128, 128, torch.bfloat16, False, 0, 0.0, 0.0, False,
+                            (391, 350, 300, 377)),
+    "rows4_7b_heads_q8_t7_bf16": (4, 7, 1, 32, 128, 128, torch.bfloat16, True, 0, 0.0, 0.0,
+                                  False, (1900, 350, 300, 377)),
 }
 
 
 def _paged_case(name, gen):
     """(q, kv pair, positions, kernel kwargs) for a ``_PCASES`` entry: rows
-    mapped to scrambled disjoint page runs, the first 200 slots written, and
-    with a tree three depths of three chains past each row's frontier."""
+    mapped to scrambled disjoint page runs of a capacity of 256 slots (more
+    for long rows), the first 200 slots (or up to the last row's frontier)
+    written, and with a tree three depths of three chains past each row's
+    frontier. Rows sit at 150, 90 and 33 unless the entry gives them."""
     from layerskip_tpu_torch.ops.paged_kv import init_paged_group
     from layerskip_tpu_torch.config import tiny_config
 
-    b, t, g, hkv, dh, page, dtype, quant, window, scale, cap, tree = _PCASES[name]
+    b, t, g, hkv, dh, page, dtype, quant, window, scale, cap, tree = _PCASES[name][:12]
+    rows = _PCASES[name][12] if len(_PCASES[name]) > 12 else (150, 90, 33)[:b]
+    written = max(200, max(rows) + (10 if tree else t))
+    slots = -(-written // 256) * 256
     cfg = tiny_config(num_key_value_heads=hkv, num_attention_heads=hkv * g,
                       hidden_size=hkv * g * dh, dtype=dtype)
-    pool_pages, cap_pages = b * (256 // page + 1) + 3, -(-256 // page)
-    group = init_paged_group(cfg, 2, b, pool_pages=pool_pages, page_size=page, capacity=256,
+    pool_pages, cap_pages = b * (slots // page + 1) + 3, -(-slots // page)
+    group = init_paged_group(cfg, 2, b, pool_pages=pool_pages, page_size=page, capacity=slots,
                              prompt_bucket=16, quant=quant, device="cuda")
     perm = torch.randperm(pool_pages, generator=torch.Generator().manual_seed(5))
     for r in range(b):
         group.k.table[r, :cap_pages] = perm[r * cap_pages:(r + 1) * cap_pages].to(torch.int32)
     k, v = group.k[1], group.v[1]  # one layer of a stacked pool
-    ctx = torch.tensor([150, 90, 33][:b], device="cuda")
-    k.write(torch.randn(b, 200, hkv, dh, generator=gen, device="cuda").to(dtype), 0)
-    v.write(torch.randn(b, 200, hkv, dh, generator=gen, device="cuda").to(dtype), 0)
+    ctx = torch.tensor(rows, device="cuda")
+    k.write(torch.randn(b, written, hkv, dh, generator=gen, device="cuda").to(dtype), 0)
+    v.write(torch.randn(b, written, hkv, dh, generator=gen, device="cuda").to(dtype), 0)
     kw = dict(q_heads_per_kv=g, sliding_window=window, score_scale=scale, logit_softcap=cap)
     if tree:  # t = 1 + 3 * 3: the root, then 3 depths of 3 chains
         scratch = ctx + 1
@@ -403,6 +437,111 @@ def test_paged_kernel_matches_plain(cuda, name):
     assert torch.isfinite(got).all()
     tol = 5e-3 if q.dtype == torch.float32 else 2e-2
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("name", ["t7_bf16", "q8_t7_bf16", "tree_gemma_q8_f32",
+                                  "long_t1_bf16", "long_q8_t7_page16_bf16"])
+def test_paged_kernels_are_deterministic(cuda, name):
+    """The partials merge in a fixed order: repeated calls give the same bits."""
+    q, k, v, pos, kw = _paged_case(name, cuda)
+    call = _paged_call(k, v)
+    first = call(q, pos, **kw)
+    for _ in range(3):
+        assert torch.equal(call(q, pos, **kw), first)
+
+
+def _row_kw(kw, r):
+    """The kernel kwargs of batch row r alone."""
+    out = dict(kw)
+    if "tree_chain" in kw:
+        out.update(tree_chain=kw["tree_chain"][r:r + 1], tree_scratch=kw["tree_scratch"][r:r + 1])
+    return out
+
+
+@pytest.mark.parametrize("name", ["rows3_t7_g2_bf16", "rows3_q8_t1_bf16", "rows3_tree_f32",
+                                  "page16_dh64_bf16", "rows4_7b_heads_bf16",
+                                  "rows4_7b_heads_q8_t7_bf16"])
+def test_paged_kernels_are_row_invariant(cuda, name):
+    """Each batch row run alone equals the same row inside B = 3 or 4 beside
+    rows of other lengths, bit for bit, also where the two launches split
+    the rows over clusters of different sizes."""
+    q, k, v, pos, kw = _paged_case(name, cuda)
+    full = _paged_call(k, v)(q, pos, **kw)
+    for r in range(q.shape[0]):
+        kr, vr = (dataclasses.replace(x, table=x.table[r:r + 1]) for x in (k, v))
+        alone = _paged_call(kr, vr)(q[r:r + 1], pos[r:r + 1], **_row_kw(kw, r))
+        assert torch.equal(full[r], alone[0]), r
+
+
+@pytest.mark.parametrize("name", ["t7_bf16", "q8_t7_bf16", "long_t1_bf16", "sliding_f32"])
+def test_paged_query_rows_are_independent(cuda, name):
+    """Query row t of a T-row call (a verify window) equals a one-row call
+    (a draft step) at its position, bit for bit: a row's sums never depend
+    on the other rows of its block."""
+    q, k, v, pos, kw = _paged_case(name, cuda)
+    call = _paged_call(k, v)
+    full = call(q, pos, **kw)
+    for t in range(q.shape[1]):
+        assert torch.equal(call(q[:, t:t + 1], pos[:, t:t + 1], **kw)[:, 0], full[:, t]), t
+
+
+def _poison_invisible(q, k, v, pos, kw):
+    """Overwrite every pool slot that no query row of any batch row can see
+    (slots past each row's frontier or before its window, unmapped and
+    trash pages) with 1e4 in K and -3e4 in V (int8 pools: 127 / -128 with
+    scales 1e4 / -3e4)."""
+    from layerskip_tpu_torch.ops.cuda import paged_decode as tpd
+
+    n_pages, _, page, _ = k.pool.shape
+    table = k.table.long()
+    qpos, chain, scratch, fanout, window = tpd._rows(
+        q, pos, kw.get("tree_chain"), kw.get("tree_scratch"), kw.get("tree_fanout", 0),
+        kw.get("sliding_window", 0))
+    vis = tpd._visible(qpos.long(), table.shape[1] * page, window, chain, scratch,
+                       fanout).any(1)  # [B, S]
+    slot = torch.arange(table.shape[1] * page, device=q.device)
+    flat = table[:, slot // page] * page + slot % page  # pool slot of each [B, S]
+    seen = torch.zeros(n_pages * page, dtype=torch.bool, device=q.device)
+    seen[flat[vis]] = True
+    hidden = ~seen.view(n_pages, page)
+    assert hidden.any()
+    for x, val, code in ((k, 1e4, 127), (v, -3e4, -128)):
+        if hasattr(x, "scale"):
+            x.pool.transpose(1, 2)[hidden] = code
+            x.scale.transpose(1, 2)[hidden] = val
+        else:
+            x.pool.transpose(1, 2)[hidden] = val
+
+
+@pytest.mark.parametrize("name", ["t7_bf16", "sliding_f32", "q8_t7_bf16", "tree_f32",
+                                  "page16_dh64_bf16", "one_chunk_window_bf16",
+                                  "one_chunk_window_q8_bf16", "long_q8_t7_page16_bf16"])
+def test_paged_kernels_ignore_keys_no_query_sees(cuda, name):
+    """The output is unchanged, bit for bit, when every key no query row can
+    see (past the frontier, before the window, in trash pages) is
+    overwritten with large values."""
+    q, k, v, pos, kw = _paged_case(name, cuda)
+    call = _paged_call(k, v)
+    before = call(q, pos, **kw)
+    _poison_invisible(q, k, v, pos, kw)
+    assert torch.equal(call(q, pos, **kw), before)
+
+
+def test_paged_split_geometry_matches_the_library(cuda):
+    """The chunk size and split count the CPU tests' model of the kernels'
+    split-and-merge uses are the compiled kernels' own."""
+    import ctypes
+
+    from layerskip_tpu_torch.ops.cuda import paged_decode as tpd
+    from layerskip_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library("paged_decode")
+    lib.paged_decode_chunk_keys.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.paged_decode_chunk_keys.restype = ctypes.c_int
+    assert lib.paged_decode_splits() == tpd.SPLITS
+    for code, dtype in ((0, torch.float32), (1, torch.bfloat16), (2, torch.int8)):
+        for dh in tpd.HEAD_DIMS:
+            assert lib.paged_decode_chunk_keys(code, dh) == tpd.chunk_keys(dh, dtype), (dtype, dh)
 
 
 def test_paged_kernels_refuse_what_they_do_not_take(cuda):

@@ -125,14 +125,17 @@ def test_init_paged_group_shares_one_table():
 # ------------------------------------------------------------ K2 / K3 plain
 
 
-def _gate_case(t=1, g=2, window=0, gemma=False, quant=False, tree=False, pg=128):
+def _gate_case(t=1, g=2, window=0, gemma=False, quant=False, tree=False, pg=128,
+               cap=256, ctx=(150, 90), written=200):
     """A gate case (scripts/kernel_gate.py: pools of 6 pages, capacity 256,
-    200 written keys, rows at 150 and 90) built in both packages.
-    Returns (jax kwargs, port kwargs, q as numpy, positions)."""
-    b, hkv, dh, cap = 2, 2, 128, 256
+    200 written keys, rows at 150 and 90) built in both packages; a longer
+    ``cap`` gets pools of its own size. Returns (jax kwargs, port kwargs, q
+    as numpy, positions)."""
+    b, hkv, dh = 2, 2, 128
     rng = np.random.default_rng(11 if tree else 4)
-    jk, tk = _pair(b, 6 * 128 // pg, pg, cap, hkv, dh, seed=5, quant=quant)
-    jv, tv = _pair(b, 6 * 128 // pg, pg, cap, hkv, dh, seed=5, quant=quant)
+    slots = 6 * 128 if cap == 256 else b * cap + 256
+    jk, tk = _pair(b, slots // pg, pg, cap, hkv, dh, seed=5, quant=quant)
+    jv, tv = _pair(b, slots // pg, pg, cap, hkv, dh, seed=5, quant=quant)
 
     def write(blk, pos):
         nonlocal jk, jv
@@ -142,7 +145,7 @@ def _gate_case(t=1, g=2, window=0, gemma=False, quant=False, tree=False, pg=128)
         tk.write(torch.from_numpy(kb), torch.from_numpy(pos))
         tv.write(torch.from_numpy(vb), torch.from_numpy(pos))
 
-    ctx = np.asarray([150, 90], np.int32)
+    ctx = np.asarray(ctx, np.int32)
     jkw = dict(q_heads_per_kv=g)
     if gemma:
         jkw.update(score_scale=32.0 ** -0.5, logit_softcap=50.0)
@@ -159,7 +162,7 @@ def _gate_case(t=1, g=2, window=0, gemma=False, quant=False, tree=False, pg=128)
         tree_kw = dict(tree_chain=chain, tree_scratch=scratch, tree_fanout=3)
         qpos = ctx[:, None] + offs[None]
     else:
-        write(200, np.zeros(2, np.int32))
+        write(written, np.zeros(2, np.int32))
         tree_kw = {}
         qpos = ctx[:, None] + np.arange(t, dtype=np.int32)[None]
     q = rng.standard_normal((b, t, hkv * g, dh)).astype(np.float32)
@@ -233,6 +236,76 @@ def test_plain_kernels_other_page_sizes_equal_fallback(pg):
         j, t = _gate_case(t=7, quant=quant, pg=pg)
         np.testing.assert_allclose(_port_plain(t, quant).numpy(),
                                    np.asarray(_jax_fallback(j)), atol=2e-5, rtol=1e-5)
+
+
+def _split_merge(t, quant):
+    """The CUDA kernels' split-and-merge (csrc/paged_decode.cu) modelled in
+    torch over the plain version's masked scores: chunks of
+    ``tpd.chunk_keys`` keys, virtual rank r of ``tpd.SPLITS`` takes chunks
+    r, r + SPLITS, ... with an online softmax in chunk order (a chunk no
+    query sees merges to nothing), and the ranks' (m, l, acc) merge in rank
+    order. fp32 pools, so p is not rounded."""
+    k, v, q = t["k"], t["v"], t["q"]
+    kg, vg = (x.gather_view(torch.float32) for x in (k, v))
+    kw = {name: t["kw"].get(name, d) for name, d in (
+        ("q_heads_per_kv", 1), ("sliding_window", 0), ("tree_chain", None),
+        ("tree_scratch", None), ("tree_fanout", 0), ("score_scale", 0.0),
+        ("logit_softcap", 0.0))}
+    scores = tpd._masked_scores(q, kg, t["qpos"], **kw)  # [B, Hkv, G, T, S]
+    b, tq, hq, dh = q.shape
+    chunk = tpd.chunk_keys(dh, torch.int8 if quant else torch.float32)
+    n_chunks = -(-scores.shape[-1] // chunk)
+    parts = []
+    for rank in range(tpd.SPLITS):
+        m = torch.full(scores.shape[:-1], tpd.NEG_INF)
+        l = torch.zeros(scores.shape[:-1])
+        acc = torch.zeros(*scores.shape[:-1], dh)
+        for c in range(rank, n_chunks, tpd.SPLITS):
+            sc = scores[..., c * chunk:(c + 1) * chunk]
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.where(sc > tpd.NEG_INF * 0.5, torch.exp(sc - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgtk,bkhd->bhgtd", p, vg[:, c * chunk:(c + 1) * chunk])
+            m = m_new
+        parts.append((m, l, acc))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+    big_l, out = torch.zeros_like(big_m), torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - big_m)
+        big_l = big_l + l * w
+        out = out + acc * w[..., None]
+    out = out / big_l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, dh)
+
+
+@pytest.mark.parametrize("name", sorted(_GATE))
+def test_split_merge_model_equals_plain_and_pallas(name):
+    """The kernels' split-and-merge over the gate's cases equals the plain
+    version (one softmax over all keys) and the Pallas kernel; rows at 90
+    and 150 leave whole chunks and whole ranks masked."""
+    case = _GATE[name]
+    quant = case.get("quant", False)
+    j, t = _gate_case(**case)
+    got = _split_merge(t, quant).numpy()
+    np.testing.assert_allclose(got, _port_plain(t, quant).numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(_jax_kernel(j, quant)), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["causal_t1", "window_t4", "q8_t7"])
+def test_split_merge_model_long_row(case):
+    """The same on rows of 2047 and 1990 keys (128 chunks of 16 fp32 keys,
+    32 of 64 int8 keys: many per rank); with a window of 100 every chunk
+    but the last few is masked."""
+    kw = {"causal_t1": dict(t=1), "window_t4": dict(t=4, g=1, window=100),
+          "q8_t7": dict(t=7, quant=True)}[case]
+    t_ = kw.get("t", 1)
+    j, t = _gate_case(**kw, cap=2048, ctx=(2047 - t_, 1990), written=2047)
+    quant = kw.get("quant", False)
+    got = _split_merge(t, quant).numpy()
+    np.testing.assert_allclose(got, _port_plain(t, quant).numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(_jax_kernel(j, quant)), atol=1e-5, rtol=0)
 
 
 def test_paged_attention_dispatch():
