@@ -10,24 +10,27 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      time, the plain version's, a library call's and the card's bound:
      K1 (flash prefill; fp32 on the CUDA cores, bf16 on the tensor cores),
      K2/K3 (paged decode attention, bf16/fp32 and int8 pools) and K4-K7
-     (quantized products) at the TPU kernel gate's shapes and at the 7B
-     shapes of the main paths, K1 also at 2048-token prompts with the 7B
-     and the Llama-3.2-1B heads, K2/K3 also at ~2000-key contexts (B 4,
-     and B 1 with one live slot);
+     (quantized products; K5/K6 in bf16 on the tensor cores) at the TPU
+     kernel gate's shapes and at the 7B shapes of the main paths, K1 also
+     at 2048-token prompts with the 7B and the Llama-3.2-1B heads, K2/K3
+     also at ~2000-key contexts (B 4, and B 1 with one live slot), K5/K6
+     also at M = 2048 (a 2000-token prompt's prefill);
   4. exact greedy AR == self-spec in fp32 at a small width, through the
      kernels: the dense base (K1, 4 launches per prefill), int8 and int4
      bases, int8 and int4 drafters over the dense base (== dense AR), and
-     the int8 KV cache; then paged continuous sessions (K2, K3, and K2 on
-     an int8 base with K4/K5) == solo ``generate``, with K2/K3 launched a
-     multiple of W*E + L times;
+     the int8 KV cache; then paged continuous sessions (K2, K3 at pages of
+     16 and 12, and K2 on an int8 base with K4/K5) == solo ``generate``,
+     with K2/K3 launched a multiple of W*E + L times;
   5. the main path at full width: random Llama-2-7B-shaped weights in bf16
      (identity tail past the exit layer), greedy AR then self-spec with
      exit 8 and W=6, tok/s, acceptance, and launches per prefill; then the
      time to first token (``generate(max_steps=1)``) of a 200- and a
      2000-token prompt;
   6. the quantized paths at full width, from phase 5's weights: int8 and
-     int4 bases (AR and spec) and int8 and int4 drafters over the bf16 base
-     (spec), with tok/s, acceptance, launches and greedy agreement;
+     int4 bases (AR and spec, then the time to first token of a 200- and a
+     2000-token prompt with K5/K6's launches and share) and int8 and int4
+     drafters over the bf16 base (spec), with tok/s, acceptance, launches
+     and greedy agreement;
   7. paged continuous serving at full width, from phase 5's weights:
      ``ContinuousBatchScheduler`` with 4 slots, pages of 128 and a pool
      that makes requests wait for pages, eight requests over a bf16 pool
@@ -39,9 +42,9 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      streams' own bf16 noise of the teacher-forced greedy choice;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
 Every kernel count is set to 0 just before each run of phases 5, 6 and 7
-and read just after it; every K1 launch of those bf16 phases must have
-taken the tensor-core route, and every one of phase 4 (fp32) the CUDA-core
-route.
+and read just after it; every K1, K5 and K6 launch of those bf16 phases
+must have taken the tensor-core route, and every one of phase 4 (fp32) the
+CUDA-core route.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing anything.
@@ -122,17 +125,22 @@ def kernel_counters():
             "int4_matmul_t": qmm.int4_matmul_t}
 
 
+TENSOR_CORE_ROUTES = ("flash_prefill", "quant_matmul", "int4_matmul")  # K1, K5, K6
+
+
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
-    kernel_counters()["flash_prefill"].tensor_core_launches = 0
+    for name in TENSOR_CORE_ROUTES:
+        kernel_counters()[name].tensor_core_launches = 0
 
 
 def read_counts():
-    """Launches per kernel, and of K1's those of its tensor-core (bf16)
-    route as ``flash_prefill_tensor_core``."""
+    """Launches per kernel, and of K1's, K5's and K6's those of their
+    tensor-core (bf16) routes as ``<name>_tensor_core``."""
     counts = {name: fn.launches for name, fn in kernel_counters().items()}
-    counts["flash_prefill_tensor_core"] = kernel_counters()["flash_prefill"].tensor_core_launches
+    for name in TENSOR_CORE_ROUTES:
+        counts[f"{name}_tensor_core"] = kernel_counters()[name].tensor_core_launches
     return counts
 
 
@@ -270,14 +278,20 @@ def quant_cases():
         ("int4_matmul_gate", "int4_matmul", 1, 1792, 768, bf16, 1.5),
         ("int4_matmul_t_gate", "int4_matmul_t", 7, 1024, 512, bf16, 1.5),
     ]
-    for m in (1, 7, 256):
-        for kern in ("quant_matmul_t", "int4_matmul_t"):
-            cases.append((f"{kern}_7b_wq_m{m}", kern, m, 4096, 4096, bf16, None))
+    for m in (1, 7, 256, 2048):
+        if m < 2048:
+            for kern in ("quant_matmul_t", "int4_matmul_t"):
+                cases.append((f"{kern}_7b_wq_m{m}", kern, m, 4096, 4096, bf16, None))
         for kern in ("quant_matmul", "int4_matmul"):
-            for layer, k, n in (("wo", 4096, 4096), ("wgate", 4096, 11008),
-                                ("wdown", 11008, 4096)):
+            for layer, k, n in KN_LAYERS:
                 cases.append((f"{kern}_7b_{layer}_m{m}", kern, m, k, n, bf16, None))
     return cases
+
+
+# the [K, N] products of a 7B layer: (name, K, N, calls per layer); w_up
+# has w_gate's shape
+KN_LAYERS = (("wo", 4096, 4096), ("wgate", 4096, 11008), ("wdown", 11008, 4096))
+KN_CALLS = {"wo": 1, "wgate": 2, "wdown": 1}
 
 
 def check_quant_kernels():
@@ -583,9 +597,10 @@ def exact_fp32_greedy():
 
     def launched(n, want):
         """Exact counts for the kernels in ``want`` (None: at least one), 0
-        for every other quantized product, one K1 launch per layer, on
-        K1's fp32 (CUDA-core) route."""
-        return n["flash_prefill"] == nl and n["flash_prefill_tensor_core"] == 0 and all(
+        for every other quantized product, one K1 launch per layer, and
+        every K1, K5 and K6 launch on its fp32 (CUDA-core) route."""
+        return n["flash_prefill"] == nl and all(
+            n[f"{k}_tensor_core"] == 0 for k in TENSOR_CORE_ROUTES) and all(
             (n[k] > 0 if want.get(k, 0) is None else n[k] == want.get(k, 0))
             for k in quant)
 
@@ -658,8 +673,8 @@ def serve_session(session, prompts, budgets):
 def exact_fp32_paged():
     """Paged continuous sessions (4 slots, six requests joining as slots
     free, pages of 16, prompt bucket 64) emit exactly the solo ``generate``
-    streams in fp32, over the model-dtype pool (K2) and the int8 pool (K3),
-    and on an int8 base (K4/K5 beside K2). With no tree and a bucket above
+    streams in fp32, over the model-dtype pool (K2) and the int8 pool (K3,
+    also at pages of 12), and on an int8 base (K4/K5 beside K2). With no tree and a bucket above
     16 the insert prefill runs K1 over the gathered view of its rows, not
     K2, so the session launches K2 (K3) a positive multiple of W*E + L
     times (one round: W drafts over E layers, then the verify over L)."""
@@ -679,20 +694,23 @@ def exact_fp32_paged():
     gen = GenerationConfig(max_steps=48, sample=False, generation_strategy="self_speculative",
                            exit_layer=e, num_speculations=w)
     ok = True
-    for label, base, kv_quant in (("fp32 pool", params, False), ("int8 pool", params, True),
-                                  ("int8 base, fp32 pool", quantize_llama_params(params), False)):
+    for label, base, kv_quant, page in (
+            ("fp32 pool", params, False, 16), ("int8 pool", params, True, 16),
+            ("int8 pool, pages of 12", params, True, 12),
+            ("int8 base, fp32 pool", quantize_llama_params(params), False, 16)):
         eng = Engine(base, cfg, device="cuda")
         g = dc.replace(gen, kv_quant=kv_quant)
         kernel = "paged_decode_attention_q8" if kv_quant else "paged_decode_attention"
         session = eng.continuous_session(g, batch=4, prompt_bucket=64, eos_ids=eos,
-                                         paged_pool_pages=40, page_size=16)
+                                         paged_pool_pages=640 // page, page_size=page)
         reset_counts()
         got = serve_session(session, prompts, budgets)
         n = read_counts()
         want = [postprocess_output(eng.generate(p, dc.replace(g, max_steps=m), eos_ids=eos),
                                    eos, m) for p, m in zip(prompts, budgets)]
         same = [got[i] == want[i] for i in range(len(prompts))]
-        quant_ok = (n["quant_matmul_t"] > 0 and n["quant_matmul"] > 0) \
+        quant_ok = (n["quant_matmul_t"] > 0 and n["quant_matmul"] > 0
+                    and n["quant_matmul_tensor_core"] == 0) \
             if base is not params else n["quant_matmul_t"] == n["quant_matmul"] == 0
         other = "paged_decode_attention" if kv_quant else "paged_decode_attention_q8"
         good = (all(same) and n[kernel] > 0 and n[kernel] % per_round == 0
@@ -777,21 +795,25 @@ def generate_timed(eng, prompt, gen_cfg, eos):
     return toks, secs, int(out.matches), int(out.drafts), read_counts()
 
 
-TTFT_PROMPTS = ((200, "flash_prefill_7b_bf16"), (2000, "flash_prefill_7b_long_bf16"))
+# (prompt tokens, prefill bucket, phase-3 K1 case of that prefill)
+TTFT_PROMPTS = ((200, 256, "flash_prefill_7b_bf16"), (2000, 2048, "flash_prefill_7b_long_bf16"))
 
 
-def time_to_first_token(eng, cfg, eos, kres):
+def time_to_first_token(eng, cfg, eos, kres, qres=None, kern=None, label="7b ttft"):
     """Wall ms of ``generate(max_steps=1)`` (the prompt's prefill and one
     token) for a 200- and a 2000-token prompt, each after a warm-up run of
     the same prompt, with K1's launches and their device time at phase 3's
-    time for that prefill shape (buckets 256 and 2048). Returns (stats,
-    launch counts summed over the timed runs)."""
+    time for that prefill shape (buckets 256 and 2048). With ``kern`` (K5
+    or K6, on a quantized base) also its launches, their device time at
+    phase 3's times of the layer's [K, N] products at M = the bucket, and
+    that time's share of the wall. Returns (stats, launch counts summed
+    over the timed runs)."""
     from layerskip_tpu_torch.config import GenerationConfig
 
     rng = np.random.default_rng(4)
     gen_cfg = GenerationConfig(max_steps=1, sample=False, generation_strategy="autoregressive")
     stats, total = {}, {}
-    for n, case in TTFT_PROMPTS:
+    for n, bucket, case in TTFT_PROMPTS:
         prompt = rng.integers(3, cfg.vocab_size, size=n).tolist()
         eng.generate(prompt, gen_cfg, eos_ids=eos)
         torch.cuda.synchronize()
@@ -799,12 +821,20 @@ def time_to_first_token(eng, cfg, eos, kres):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         k1 = counts["flash_prefill"]
-        stats[n] = dict(ms=secs * 1e3, tokens=len(toks), k1_launches=k1,
-                        k1_device_ms=k1 * kres[case]["ms"], k1_case=case)
-    log(f"[7b ttft] generate(max_steps=1), wall ms after a warm-up: " + "; ".join(
+        st = dict(ms=secs * 1e3, tokens=len(toks), k1_launches=k1,
+                  k1_device_ms=k1 * kres[case]["ms"], k1_case=case)
+        if kern:
+            layer_ms = sum(KN_CALLS[name] * qres[f"{kern}_7b_{name}_m{bucket}"]["ms"]
+                           for name, _, _ in KN_LAYERS)
+            st.update(kn_launches=counts[kern], kn_device_ms=cfg.num_hidden_layers * layer_ms)
+            st["kn_share"] = st["kn_device_ms"] / st["ms"]
+        stats[n] = st
+    log(f"[{label}] generate(max_steps=1), wall ms after a warm-up: " + "; ".join(
         f"{n}-token prompt {s['ms']:.2f} ms, K1 {s['k1_launches']} launches x "
         f"{kres[s['k1_case']]['ms']:.4f} ms ({s['k1_case']}) = {s['k1_device_ms']:.3f} ms"
-        for n, s in stats.items()))
+        + (f", {kern} {s['kn_launches']} launches = {s['kn_device_ms']:.3f} ms at phase 3's "
+           f"M = {bucket} times ({s['kn_share']:.1%} of the wall)" if kern else "")
+        for (n, s), (_, bucket, _) in zip(stats.items(), TTFT_PROMPTS)))
     return stats, total
 
 
@@ -873,10 +903,11 @@ def full_width(kres):
 # ------------------------------------------------------------ phase 6
 
 
-def quantized_full_width(params, cfg, prompt, bf16_ar, bf16_tie):
-    """int8 and int4 bases (AR and spec) and int8 and int4 drafters over the
-    bf16 base (spec) at full width. Returns (ok, per-run stats, launch
-    counts summed over the runs)."""
+def quantized_full_width(params, cfg, prompt, bf16_ar, bf16_tie, kres, qres):
+    """int8 and int4 bases (AR and spec, then the time to first token of a
+    200- and a 2000-token prompt) and int8 and int4 drafters over the bf16
+    base (spec) at full width. Returns (ok, per-run stats, launch counts
+    summed over the runs)."""
     from layerskip_tpu_torch.config import GenerationConfig
     from layerskip_tpu_torch.generation.engine import Engine
     from layerskip_tpu_torch.quant import quantize_llama_params
@@ -916,13 +947,17 @@ def quantized_full_width(params, cfg, prompt, bf16_ar, bf16_tie):
                 and n_ar[k_nk] == 3 * nl * FULL_STEPS and n_ar[k_kn] == 4 * nl * FULL_STEPS
                 and n_sp[k_nk] > 0 and n_sp[k_kn] > 0
                 and all(n_ar[k] == n_sp[k] == 0 for k in others))
-        ok &= good
         name = f"int{bits}_base"
+        ttft, ttft_counts = time_to_first_token(eng, cfg, eos, kres, qres, k_kn,
+                                                f"7b {name} ttft")
+        add(ttft_counts)
+        good &= all(s["tokens"] == 1 and s["kn_launches"] == 4 * nl for s in ttft.values())
+        ok &= good
         stats[name] = dict(ar_tok_s=len(ar_toks) / t_ar, spec_tok_s=len(sp_toks) / t_sp,
                            acceptance=acceptance, spec_eq_ar=agree, first_tie=tie,
                            ar_launches={k_nk: n_ar[k_nk], k_kn: n_ar[k_kn]},
                            spec_launches={k_nk: n_sp[k_nk], k_kn: n_sp[k_kn]},
-                           quantize_s=t_quant)
+                           quantize_s=t_quant, ttft=ttft)
         log(f"[7b {name}] quantized in {t_quant:.1f}s, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; AR {len(ar_toks)} "
             f"tokens in {t_ar:.3f}s = {len(ar_toks) / t_ar:.2f} tok/s; spec "
@@ -1178,7 +1213,7 @@ def main() -> int:
     ok_full, stats, counts, ctx = full_width(kres)
     log(f"[phase 5] {time.time() - t0:.1f}s")
     t0 = time.time()
-    ok_quant, qstats, qcounts = quantized_full_width(*ctx)
+    ok_quant, qstats, qcounts = quantized_full_width(*ctx, kres, qres)
     log(f"[phase 6] {time.time() - t0:.1f}s")
     t0 = time.time()
     ok_serve, sstats, scounts = serving_full_width(ctx[0], ctx[1], stats["spec_tok_s"])
@@ -1192,6 +1227,13 @@ def main() -> int:
         f"{counts['flash_prefill_tensor_core']} on the tensor-core route -> "
         f"{'PASS' if ok_route else 'FAIL'}")
     ok_full &= ok_route
+    # and every K5/K6 launch of them the tensor-core route
+    ok_qroute = all(counts[f"{k}_tensor_core"] == counts[k] > 0
+                    for k in ("quant_matmul", "int4_matmul"))
+    log(f"[k5/k6 route] phases 5-7: " + ", ".join(
+        f"{k} {counts[k]} launches, {counts[f'{k}_tensor_core']} on the tensor cores"
+        for k in ("quant_matmul", "int4_matmul")) + f" -> {'PASS' if ok_qroute else 'FAIL'}")
+    ok_quant &= ok_qroute
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} {json.dumps(stats)} "
         f"{json.dumps(qstats)} {json.dumps(sstats)} launches={json.dumps(counts)} "

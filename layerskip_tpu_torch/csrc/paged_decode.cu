@@ -53,7 +53,10 @@
 //   tensor map) into a two-stage ring completing on mbarriers: one head's
 //   [page, Dh] slab of a pool page is contiguous, so a chunk is one copy per
 //   page it touches for K, for V and (K3) for each scale. Warp 0 issues
-//   them, one lane per page; it fetches the first chunks' table entries
+//   them, one lane per page; a scale run that is not 16 bytes in size and
+//   alignment (pages of other than a multiple of 8 slots) the lane copies
+//   with plain loads before it arrives on the barrier. It fetches the first
+//   chunks' table entries
 //   while q and the positions load, and the next chunk's while the current
 //   one is computed, so chunk i + 1 (and the other blocks' chunks) load
 //   while chunk i is computed.
@@ -203,14 +206,21 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// a barrier that completes a phase after 32 arrivals (the lanes of warp 0)
+// and the bytes they announced
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(bar) : "memory");
 }
 
-// one arrival that also expects `bytes` of asynchronous copies
+// expect `bytes` more of asynchronous copies in the current phase (no arrival)
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// one arrival; it releases this thread's earlier shared-memory stores
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -425,16 +435,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
   };
 
   // warp 0: chunk c's K, V (and scales) into ring stage `stage`, one lane
-  // per page the chunk touches (tab: that page's table entry, from fetch)
+  // per page the chunk touches (tab: that page's table entry, from fetch).
+  // Each lane announces the bytes of its bulk copies before it issues them
+  // and arrives once at the end. A K3 scale run that a bulk copy cannot move
+  // (not a multiple of 16 bytes in size, source or destination alignment:
+  // pages of other than a multiple of 8 slots) the lane copies itself,
+  // before it arrives.
   const TKV* kpool = static_cast<const TKV*>(a.k);
   const TKV* vpool = static_cast<const TKV*>(a.v);
   auto issue = [&](int c, int stage, int tab) {
     const int start = c * kChunk;
     const int end = min(start + kChunk, S);
     const uint32_t bar = smem_addr(bars + stage);
-    if (lane == 0)
-      mbar_expect_tx(bar, (uint32_t)(end - start) * (2 * Gm::kRowBytes + (kQ8 ? 4 : 0)));
-    __syncwarp();
     unsigned char* st = ring + stage * Gm::kStageBytes;
     for (int n = start / a.page + lane; n * a.page < end; n += 32) {
       if (n - start / a.page >= 32) tab = a.table[b * a.maxp + n];
@@ -442,15 +454,35 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args a) {
       const int64_t row = ((int64_t)tab * a.Hkv + j) * a.page + (k0 - n * a.page);
       const uint32_t off = (uint32_t)(k0 - start);
       const uint32_t nb = (uint32_t)(k1 - k0) * Gm::kRowBytes;
+      bool bulk_scales = false;
+      if constexpr (kQ8) {
+        const uint32_t sb = (uint32_t)(k1 - k0) * 2;
+        bulk_scales = sb % 16 == 0 && (off * 2) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.k_scale + row) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.v_scale + row) % 16 == 0;
+        mbar_expect_tx(bar, 2 * nb + (bulk_scales ? 2 * sb : 0));
+      } else {
+        mbar_expect_tx(bar, 2 * nb);
+      }
       bulk_load(smem_addr(st + off * Gm::kRowBytes), kpool + row * DH, nb, bar);
       bulk_load(smem_addr(st + Gm::kKBytes + off * Gm::kRowBytes), vpool + row * DH, nb, bar);
       if constexpr (kQ8) {
-        const uint32_t sb = (uint32_t)(k1 - k0) * 2;
-        bulk_load(smem_addr(st + 2 * Gm::kKBytes + off * 2), a.k_scale + row, sb, bar);
-        bulk_load(smem_addr(st + 2 * Gm::kKBytes + Gm::kScaleBytes + off * 2), a.v_scale + row,
-                  sb, bar);
+        unsigned char* ks = st + 2 * Gm::kKBytes + off * 2;
+        unsigned char* vs = ks + Gm::kScaleBytes;
+        if (bulk_scales) {
+          bulk_load(smem_addr(ks), a.k_scale + row, (uint32_t)(k1 - k0) * 2, bar);
+          bulk_load(smem_addr(vs), a.v_scale + row, (uint32_t)(k1 - k0) * 2, bar);
+        } else {
+          const uint16_t* ksrc = reinterpret_cast<const uint16_t*>(a.k_scale + row);
+          const uint16_t* vsrc = reinterpret_cast<const uint16_t*>(a.v_scale + row);
+          for (int i = 0; i < k1 - k0; ++i) {
+            reinterpret_cast<uint16_t*>(ks)[i] = ksrc[i];
+            reinterpret_cast<uint16_t*>(vs)[i] = vsrc[i];
+          }
+        }
       }
     }
+    mbar_arrive(bar);
   };
 
   // scores: lane li of a key's kLK lanes holds vectors li + v * kLK of q
@@ -829,9 +861,7 @@ int chunk_keys(int dh) {
 // q_dtype: 0 = float32, 1 = bfloat16. kv_dtype: 0 = float32, 1 = bfloat16
 // (K2, equal to q_dtype), 2 = int8 with bf16 scales (K3). Strides are in
 // elements; head_dim is contiguous. chain and scratch are null without a
-// tree. K3 needs pages of a multiple of 8 slots and 16-byte aligned scales
-// (its scale copies move multiples of 16 bytes). Returns a cudaError_t
-// (0 = launched).
+// tree. Any page size. Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_launch(
     int q_dtype, int kv_dtype, int head_dim, const void* q, const void* k,
     const void* v, const void* k_scale, const void* v_scale,
@@ -867,7 +897,6 @@ extern "C" int paged_decode_launch(
   a.scale = scale;
   a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 2 && page % 8 != 0) return (int)cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0) return (int)launch_dh<float, float>(head_dim, a, B, st);
   if (q_dtype == 1 && kv_dtype == 1)
     return (int)launch_dh<__nv_bfloat16, __nv_bfloat16>(head_dim, a, B, st);

@@ -189,15 +189,13 @@ def paged_decode_attention_q8(q, k_pool, k_scale, v_pool, v_scale, table, q_posi
                                                table, q_positions, **kw)
     if k_pool.dtype != torch.int8:
         raise ValueError(f"paged_decode_q8: pool dtype {k_pool.dtype}, want int8")
-    if k_pool.dim() != 4 or k_pool.shape[2] % 8:
-        raise ValueError(f"paged_decode_q8: pages of {tuple(k_pool.shape)[2:3]} slots; the "
-                         "kernel copies scales in runs of 16 bytes, so pages of a "
-                         "multiple of 8")
+    if k_pool.dim() != 4:
+        raise ValueError(f"paged_decode_q8: pool {tuple(k_pool.shape)}, want [P, Hkv, page, Dh]")
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         if (s.device != q.device or s.dtype != torch.bfloat16 or not s.is_contiguous()
-                or tuple(s.shape) != tuple(k_pool.shape[:3]) or s.data_ptr() % 16):
+                or tuple(s.shape) != tuple(k_pool.shape[:3])):
             raise ValueError(f"paged_decode_q8: {name} {tuple(s.shape)} {s.dtype} on "
-                             f"{s.device}, want a contiguous, 16-byte aligned bf16 "
+                             f"{s.device}, want a contiguous bf16 "
                              f"{tuple(k_pool.shape[:3])} on {q.device}")
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, table, q_positions, **kw)
     paged_decode_attention_q8.launches += 1

@@ -22,6 +22,12 @@ are TPU formulations of the same product and are not ported.
 A wrapper launches its kernel for CUDA tensors, at every M, and raises on
 anything the kernel does not take; only CPU tensors go to its ``_plain``
 version. ``quantize_weights`` is the JAX module's plain quantizer.
+
+K5 and K6 in bfloat16 run on the tensor cores and split K into
+``kn_slices(K)`` slices of whole ``KN_TILE``-element tiles, whose fp32
+partial sums are added in slice order (the source's header); their
+``tensor_core_launches`` counts those launches. In float32 they, and K4/K7
+at every dtype, run on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -36,6 +42,16 @@ from layerskip_tpu_torch.ops.linear import unpack_int4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KN, _NK = 0, 1  # weight layouts of the C interface: [K, N] and [N, K]
+KN_TILE = 64  # K elements per tile of the tensor-core route (kTcKT in csrc/quant_matmul.cu)
+KN_MAX_SLICES = 8  # K slices of one output tile, at most (kTcMaxSlices)
+KN_MIN_TILES = 4  # tiles per slice, at least, once K splits (kTcMinTiles)
+
+
+def kn_slices(k: int) -> int:
+    """K slices of a bf16 [K, N] product on the tensor cores (``tc_slices``
+    in csrc/quant_matmul.cu): a function of K alone. Slice s of S takes
+    tiles [s * T // S, (s + 1) * T // S) of the T = ceil(K / KN_TILE)."""
+    return max(1, min(KN_MAX_SLICES, -(-k // KN_TILE) // KN_MIN_TILES))
 
 
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,22 +132,31 @@ def _check(name, x, q, scale, q_dtype, q_shape, scale_shape, group):
         raise ValueError(f"{name}: group {group} must be even and divide K={x.shape[1]}")
 
 
-def _entry():
-    """The C entry point, bound on first use (the library is built at the
-    first launch and cached by ``build.load_library``)."""
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built at first use and cached by
+    ``build.load_library``, with its entry points' signatures bound."""
     from layerskip_tpu_torch.ops.cuda.build import load_library
 
-    fn = load_library("quant_matmul").quant_matmul_launch
+    lib = load_library("quant_matmul")
+    fn = lib.quant_matmul_launch
     if fn.argtypes is None:
         i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i32, i32, i32, ptr, i64, ptr, ptr, ptr,
                        i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
-    return fn
+    return lib
+
+
+def library_kn_geometry(k: int) -> Tuple[int, int]:
+    """(elements per tile, slices) of the built library's tensor-core route
+    for a K: what ``KN_TILE`` and ``kn_slices`` must equal."""
+    lib = _library()
+    lib.quant_matmul_kn_slices.argtypes = [ctypes.c_int]
+    return lib.quant_matmul_kn_tile(), lib.quant_matmul_kn_slices(k)
 
 
 def _launch(layout, bits, x, q, scale, n, group, vec_bytes):
-    launch = _entry()
+    launch = _library().quant_matmul_launch
     m, k = x.shape
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -159,6 +184,8 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> tor
     _check("quant_matmul", x, w_q, scale, torch.int8, (k, n), (n,), 0)
     out = _launch(_KN, 8, x, w_q, scale, n, 0, 4)
     quant_matmul.launches += 1
+    if x.dtype == torch.bfloat16:
+        quant_matmul.tensor_core_launches += 1
     return out
 
 
@@ -183,6 +210,8 @@ def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor,
            (k // g if g else -1, n), g or -1)
     out = _launch(_KN, 4, x, q_packed, scale, n, g, 4)
     int4_matmul.launches += 1
+    if x.dtype == torch.bfloat16:
+        int4_matmul.tensor_core_launches += 1
     return out
 
 
@@ -201,4 +230,6 @@ def int4_matmul_t(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor,
 
 for _fn in (quant_matmul, quant_matmul_t, int4_matmul, int4_matmul_t):
     _fn.launches = 0
+for _fn in (quant_matmul, int4_matmul):
+    _fn.tensor_core_launches = 0  # of its launches, those on the tensor cores (bf16)
 

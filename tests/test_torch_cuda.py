@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: against their plain versions,
-through the engine, and the wrappers' refusals; K1's tensor-core (bf16)
-route and K2/K3 also for bit-for-bit determinism and invariance to the
-batch, the other rows and the keys no query sees. Every test here needs a
-CUDA device and nvcc and skips without them.
+through the engine, and the wrappers' refusals; the tensor-core (bf16)
+routes of K1 and K5/K6, and K2/K3, also for bit-for-bit determinism and
+invariance to the batch, the other rows and the keys no query sees. Every
+test here needs a CUDA device and nvcc and skips without them.
 
 This file imports no JAX, so it runs on a machine without it:
 
@@ -211,6 +211,13 @@ _QCASES = {
     "K6_f32_g6": ("int4_matmul", 9, 600, 45, 6, torch.float32),
     "K7_bf16": ("int4_matmul_t", 2, 4096, 300, 128, torch.bfloat16),
     "K7_f32_g6": ("int4_matmul_t", 5, 1020, 37, 6, torch.float32),
+    # bf16 [K, N] on the tensor cores: tiles by TMA (N % 16 == 0, G % 64 ==
+    # 0) with a ragged K tail, a 7B w_down at a verify-sized M, and a group
+    # of 6 (the blocks load their tiles themselves, as at N 1000 and 1030)
+    "K5_bf16_tma_raggedk": ("quant_matmul", 300, 1000, 512, 0, torch.bfloat16),
+    "K5_bf16_7b_wdown": ("quant_matmul", 28, 11008, 4096, 0, torch.bfloat16),
+    "K6_bf16_tma": ("int4_matmul", 37, 2048, 1024, 128, torch.bfloat16),
+    "K6_bf16_g6": ("int4_matmul", 9, 600, 45, 6, torch.bfloat16),
 }
 
 
@@ -245,18 +252,79 @@ def test_quant_kernel_matches_plain(cuda, name):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+# (M, first row) of the row-invariance test's calls for K5/K6 in bf16: every
+# token tile of the tensor-core route (8, 32 and 128 rows), ragged ones too
+_TC_SPANS = ((1, 0), (4, 5), (7, 3), (28, 100), (37, 263), (256, 44), (300, 0), (1, 299))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_kernels_are_row_invariant(cuda, dtype):
     """A row's output does not depend on M or on its place in the batch:
-    bit-identical at M = 1, 7 and 37 (greedy AR == spec needs it)."""
-    for name in ("K5_bf16", "K4_bf16", "K6_bf16", "K7_bf16"):
+    bit-identical at M = 1, 7 and 37 (greedy AR == spec needs it); K5/K6 in
+    bf16, whose tensor-core tile follows M, at M = 1, 4, 7, 28, 37, 256 and
+    300, with tiles by TMA and loaded by the blocks."""
+    for name in ("K5_bf16", "K4_bf16", "K6_bf16", "K7_bf16", "K5_bf16_tma_raggedk",
+                 "K6_bf16_tma"):
         fn, x, qt = _quant_case(name, cuda)
-        x = torch.randn(37, x.shape[1], generator=cuda, device="cuda").to(dtype)
+        tc = dtype == torch.bfloat16 and fn in ("quant_matmul", "int4_matmul")
+        spans = _TC_SPANS if tc else ((1, 0), (7, 3), (1, 36))
+        x = torch.randn(300 if tc else 37, x.shape[1], generator=cuda, device="cuda").to(dtype)
         full = _call(fn, x, qt)
-        for rows in (x[:1], x[3:10], x[36:]):
-            start = int((rows.data_ptr() - x.data_ptr()) // (x.element_size() * x.shape[1]))
-            part = _call(fn, rows, qt)
-            assert torch.equal(part, full[start:start + rows.shape[0]]), (name, start)
+        for m, start in spans:
+            part = _call(fn, x[start:start + m], qt)
+            assert torch.equal(part, full[start:start + m]), (name, start, m)
+
+
+@pytest.mark.parametrize("name", ["K5_bf16", "K5_bf16_7b_wdown", "K6_bf16", "K6_bf16_tma"])
+def test_quant_tensor_core_route_is_deterministic(cuda, name):
+    """The K slices merge in a fixed order: repeated calls give the same
+    bits, at a decode and a prefill M."""
+    fn, x, qt = _quant_case(name, cuda)
+    for m in (1, 256):
+        xm = torch.randn(m, x.shape[1], generator=cuda, device="cuda").bfloat16()
+        first = _call(fn, xm, qt)
+        for _ in range(3):
+            assert torch.equal(_call(fn, xm, qt), first), m
+
+
+def test_quant_split_geometry_matches_the_library(cuda):
+    """The tile and slice counts the CPU tests' model of the K split uses
+    are the compiled kernel's own."""
+    for k in (2, 64, 300, 600, 1000, 1792, 2048, 4096, 11008, 14336):
+        assert tqmm.library_kn_geometry(k) == (tqmm.KN_TILE, tqmm.kn_slices(k)), k
+
+
+def test_quant_tensor_core_launches_count_bf16_calls_only(cuda):
+    """K5/K6 count every bf16 launch as a tensor-core launch, no fp32 one."""
+    for name in ("K5_bf16", "K6_bf16"):
+        fn, x, qt = _quant_case(name, cuda)
+        kernel = getattr(tqmm, fn)
+        for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+            before = (kernel.launches, kernel.tensor_core_launches)
+            _call(fn, x.to(dtype), qt)
+            assert (kernel.launches, kernel.tensor_core_launches) == (before[0] + 1,
+                                                                      before[1] + tc)
+
+
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_quant_kernels_take_stacked_layer_views(cuda, n):
+    """Layer i > 0 of a stacked [L, K, N] weight (``QuantTensor[i]``, a view
+    at an offset) gives the bits of its contiguous copy and the plain
+    version's values."""
+    from layerskip_tpu_torch.quant import quantize_tensor
+
+    w = torch.randn(3, 2048, n, generator=cuda, device="cuda") * 0.02
+    for fn, bits in (("quant_matmul", 8), ("int4_matmul", 4)):
+        stacked = quantize_tensor(w, bits=bits, group=128 if bits == 4 else 0)
+        for m in (1, 37):
+            x = torch.randn(m, 2048, generator=cuda, device="cuda").bfloat16()
+            layer = stacked[2]
+            assert layer.q.data_ptr() != stacked.q.data_ptr()
+            got = _call(fn, x, layer)
+            copy = dataclasses.replace(layer, q=layer.q.clone(), scale=layer.scale.clone())
+            assert torch.equal(got, _call(fn, x, copy)), (fn, m)
+            want = _call(fn, x, layer, plain=True).float()
+            assert (got.float() - want).abs().max().item() <= 2.0 ** -7 * want.abs().max().item()
 
 
 def test_quant_kernels_refuse_what_they_do_not_take(cuda):
@@ -351,6 +419,12 @@ _PCASES = {
                               (2015, 991)),
     "one_chunk_window_q8_bf16": (2, 1, 1, 4, 128, 128, torch.bfloat16, True, 16, 0.0, 0.0,
                                     False, (2015, 991)),
+    # pages of 12 and 20 slots: K3's scale runs are then not 16-byte copies
+    "q8_page12_t1_bf16": (2, 1, 1, 4, 128, 12, torch.bfloat16, True, 0, 0.0, 0.0, False),
+    "q8_page12_tree_f32": (2, 10, 2, 2, 128, 12, torch.float32, True, 0, 0.0, 0.0, True),
+    "q8_page20_t7_bf16": (2, 7, 2, 2, 128, 20, torch.bfloat16, True, 0, 0.0, 0.0, False),
+    "long_q8_page12_t7_bf16": (2, 7, 1, 4, 128, 12, torch.bfloat16, True, 0, 0.0, 0.0, False,
+                               (2090, 2047)),
     # three batch rows of other lengths, for row invariance
     "rows3_t7_g2_bf16": (3, 7, 2, 2, 128, 128, torch.bfloat16, False, 0, 0.0, 0.0, False,
                          (1000, 150, 33)),
@@ -440,7 +514,8 @@ def test_paged_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["t7_bf16", "q8_t7_bf16", "tree_gemma_q8_f32",
-                                  "long_t1_bf16", "long_q8_t7_page16_bf16"])
+                                  "long_t1_bf16", "long_q8_t7_page16_bf16",
+                                  "long_q8_page12_t7_bf16"])
 def test_paged_kernels_are_deterministic(cuda, name):
     """The partials merge in a fixed order: repeated calls give the same bits."""
     q, k, v, pos, kw = _paged_case(name, cuda)
@@ -515,7 +590,8 @@ def _poison_invisible(q, k, v, pos, kw):
 
 @pytest.mark.parametrize("name", ["t7_bf16", "sliding_f32", "q8_t7_bf16", "tree_f32",
                                   "page16_dh64_bf16", "one_chunk_window_bf16",
-                                  "one_chunk_window_q8_bf16", "long_q8_t7_page16_bf16"])
+                                  "one_chunk_window_q8_bf16", "long_q8_t7_page16_bf16",
+                                  "q8_page20_t7_bf16"])
 def test_paged_kernels_ignore_keys_no_query_sees(cuda, name):
     """The output is unchanged, bit for bit, when every key no query row can
     see (past the frontier, before the window, in trash pages) is
@@ -586,16 +662,16 @@ def _session_engine():
     return Engine(params, cfg, device="cuda")
 
 
-def _serve_paged(eng, kv_quant, prompts, budgets, eos):
-    """Every request through a paged session (4 slots, pages of 16, bucket
-    64), inserted as slots free; -> ({request: tokens}, {request: (matches,
-    drafts)}, session)."""
+def _serve_paged(eng, kv_quant, prompts, budgets, eos, page_size=16):
+    """Every request through a paged session (4 slots, pages of 16 unless
+    given, 1024 pool slots, bucket 64), inserted as slots free; ->
+    ({request: tokens}, {request: (matches, drafts)}, session)."""
     from layerskip_tpu_torch.config import GenerationConfig
 
     gen = GenerationConfig(max_steps=24, sample=False, generation_strategy="self_speculative",
                            exit_layer=2, num_speculations=3, kv_quant=kv_quant)
     session = eng.continuous_session(gen, batch=4, prompt_bucket=64, eos_ids=eos,
-                                     paged_pool_pages=64, page_size=16)
+                                     paged_pool_pages=1024 // page_size, page_size=page_size)
     got, counts, owner, queue = {}, {}, {}, list(range(len(prompts)))
     while queue or session.has_active():
         slots = session.free_slots()[:len(queue)]
@@ -611,7 +687,7 @@ def _serve_paged(eng, kv_quant, prompts, budgets, eos):
     return got, counts, session
 
 
-def _assert_equals_solo(eng, kv_quant, prompts, budgets):
+def _assert_equals_solo(eng, kv_quant, prompts, budgets, page_size=16):
     """Each request's paged-session stream == its solo AR stream; on a
     mismatch, the message gives the first differing token and the solo
     stream's teacher-forced top-2 logit gap there (a gap near fp32 rounding
@@ -622,7 +698,7 @@ def _assert_equals_solo(eng, kv_quant, prompts, budgets):
     from layerskip_tpu_torch.ops.kv_cache import init_kv_cache, init_quant_kv_cache
 
     eos = (eng.cfg.vocab_size + 7,)
-    got, _, _ = _serve_paged(eng, kv_quant, prompts, budgets, eos)
+    got, _, _ = _serve_paged(eng, kv_quant, prompts, budgets, eos, page_size)
     for i, p in enumerate(prompts):
         ar = GenerationConfig(max_steps=budgets[i], sample=False, kv_quant=kv_quant)
         want = postprocess_output(eng.generate(p, ar, eos_ids=eos), eos, budgets[i])
@@ -655,6 +731,20 @@ def test_paged_session_equals_solo_through_the_kernels(cuda, kv_quant):
     before = kernel.launches
     _assert_equals_solo(eng, kv_quant, prompts, [24, 9, 17, 24, 5, 20])
     assert kernel.launches > before
+
+
+@pytest.mark.parametrize("page", [12, 20])
+def test_paged_session_odd_pages_equals_solo_through_the_kernels(cuda, page):
+    """The same with the int8 cache at pages of 12 and 20 slots, which K3
+    takes like any other page size (the JAX package serves them)."""
+    from layerskip_tpu_torch.ops.cuda import paged_decode as tpd
+
+    eng = _session_engine()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, 256, size=n).tolist() for n in (40, 7, 60, 23, 51, 12)]
+    before = tpd.paged_decode_attention_q8.launches
+    _assert_equals_solo(eng, True, prompts, [24, 9, 17, 24, 5, 20], page_size=page)
+    assert tpd.paged_decode_attention_q8.launches > before
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])

@@ -238,6 +238,20 @@ def test_plain_kernels_other_page_sizes_equal_fallback(pg):
                                    np.asarray(_jax_fallback(j)), atol=2e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["q8_t1", "q8_t7", "q8_tree", "t7"])
+def test_plain_kernels_page12_equal_pallas_and_fallback(case):
+    """Pages of 12 slots (not a multiple of 8: K3's scale runs are then not
+    16-byte copies on the card): the plain versions equal the Pallas kernels
+    and the gathered fallback, as at the gate's 128."""
+    kw = {"q8_t1": dict(t=1, quant=True), "q8_t7": dict(t=7, quant=True),
+          "q8_tree": dict(tree=True, quant=True), "t7": dict(t=7)}[case]
+    quant = kw.get("quant", False)
+    j, t = _gate_case(**kw, pg=12)
+    got = _port_plain(t, quant).numpy()
+    np.testing.assert_allclose(got, np.asarray(_jax_kernel(j, quant)), atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(_jax_fallback(j)), atol=2e-5, rtol=1e-5)
+
+
 def _split_merge(t, quant):
     """The CUDA kernels' split-and-merge (csrc/paged_decode.cu) modelled in
     torch over the plain version's masked scores: chunks of
@@ -449,6 +463,21 @@ def test_paged_session_equals_jax_contiguous_and_solo(engines, kv_quant):
     assert _drive(te.continuous_session(_gen(GenerationConfig, **kw), 2, 16, EOS))[0] == got
     assert all(got[i] == _solo(te, i, **kw) and len(got[i]) == _BUDGETS[i] for i in range(4))
     assert any(d > 0 for _, d in counts.values())
+
+
+@pytest.mark.parametrize("page", [12, 20])
+def test_paged_session_odd_pages_equals_jax_and_solo(engines, page):
+    """A paged session with the int8 cache at pages of 12 and 20 slots (the
+    JAX package serves any page size) == solo ``generate``, and streams and
+    counters equal the JAX package's session of the same geometry."""
+    je, te = engines
+    paged = dict(paged_pool_pages=160 // page, page_size=page)
+    got, counts = _drive(te.continuous_session(_gen(GenerationConfig, kv_quant=True), 2, 16,
+                                               EOS, **paged))
+    want, jcounts = _drive(je.continuous_session(_gen(JGenerationConfig, kv_quant=True), 2, 16,
+                                                 EOS, **paged))
+    assert got == want and counts == jcounts
+    assert all(got[i] == _solo(te, i, kv_quant=True) for i in range(4))
 
 
 def test_paged_insert_runs_through_the_plain_kernel(engines, monkeypatch):

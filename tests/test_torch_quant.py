@@ -21,6 +21,9 @@ The same numpy inputs go through both packages. What is held:
     int8 KV cache.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -214,6 +217,91 @@ def test_wrappers_take_the_plain_version_on_cpu():
             qt = tquant.quantize_tensor(w, k_last=k_last, bits=bits)
             dense = x @ (qt.dequantize(torch.float32).T if k_last else qt.dequantize(torch.float32))
             torch.testing.assert_close(apply(x, qt), dense, atol=1e-4, rtol=0)
+
+
+# ------------------------------------------- K5/K6 on the tensor cores: the K split
+
+# the gate's [K, N] cases and one of the 7B K of w_down (11008, eight slices
+# of 21-22 tiles): (M, K, N, bits)
+_SPLIT = {
+    "quant_matmul": _GATE["quant_matmul"][:4],
+    "int4_matmul": _GATE["int4_matmul"][:4],
+    "quant_matmul_k11008": (3, 11008, 128, 8),
+    "int4_matmul_k11008": (3, 11008, 128, 4),
+}
+
+
+def _split_inputs(name, dtype):
+    if name in _GATE:
+        return _gate_inputs(name, dtype)
+    m, k, n, bits = _SPLIT[name]
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    group = 128 if bits == 4 else 0
+    jq = jquant.quantize_tensor(jnp.asarray(w), bits=bits, group=group)
+    tq = tquant.quantize_tensor(_t(w), bits=bits, group=group)
+    tx = _t(x).to({jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[dtype])
+    return jnp.asarray(x, dtype), jq, tx, tq
+
+
+def _kn_split(x, qt):
+    """The tensor-core route of K5/K6 (csrc/quant_matmul.cu) modelled in
+    torch: the weight as the kernel dequantizes it (int8 exactly; int4
+    rounded to x's dtype), K in tiles of ``KN_TILE``, slice s of
+    ``kn_slices(K)`` summing tiles [s * T // S, (s + 1) * T // S) in fp32,
+    the slices' sums added in slice order, int8's scale on the total, one
+    rounding."""
+    k = x.shape[1]
+    w = (tqmm._int4_weight(qt.q, qt.scale.float(), qt.group, False, x.dtype)
+         if qt.group else qt.q.float())
+    tiles, n_slices = -(-k // tqmm.KN_TILE), tqmm.kn_slices(k)
+    total = None
+    for s in range(n_slices):
+        lo = s * tiles // n_slices * tqmm.KN_TILE
+        hi = min(k, (s + 1) * tiles // n_slices * tqmm.KN_TILE)
+        part = x[:, lo:hi].float() @ w[lo:hi]
+        total = part if total is None else total + part
+    if not qt.group:
+        total = total * qt.scale.float()
+    return total.to(x.dtype)
+
+
+def test_kn_split_geometry_mirrors_the_source():
+    """The Python constants are the source's, the slices tile K exactly with
+    at least KN_MIN_TILES tiles each once K splits, and the 7B products
+    split into eight."""
+    src = (Path(tqmm.__file__).resolve().parents[2] / "csrc" / "quant_matmul.cu").read_text()
+    for name, value in (("kTcKT", tqmm.KN_TILE), ("kTcMaxSlices", tqmm.KN_MAX_SLICES),
+                        ("kTcMinTiles", tqmm.KN_MIN_TILES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    for k in (1, 63, 64, 256, 300, 1024, 1536, 1792, 4096, 11008, 14336):
+        tiles, n = -(-k // tqmm.KN_TILE), tqmm.kn_slices(k)
+        bounds = [s * tiles // n for s in range(n + 1)]
+        assert bounds[0] == 0 and bounds[-1] == tiles and 1 <= n <= tqmm.KN_MAX_SLICES
+        assert n == 1 or min(np.diff(bounds)) >= tqmm.KN_MIN_TILES, k
+    assert tqmm.kn_slices(4096) == tqmm.kn_slices(11008) == 8
+
+
+@pytest.mark.parametrize("name", sorted(_SPLIT))
+def test_kn_split_model_equals_plain_and_pallas_fp32(name):
+    jx, jq, tx, tq = _split_inputs(name, jnp.float32)
+    got = _kn_split(tx, tq).numpy()
+    want = _plain(name.split("_k")[0], tx, tq).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+    pallas = np.asarray(_jax_kernel(name.split("_k")[0], jx, jq))
+    np.testing.assert_allclose(got, pallas, atol=1e-5 * np.abs(pallas).max(), rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(_SPLIT))
+def test_kn_split_model_equals_plain_bf16(name):
+    """In bf16 the model and the plain version round the same fp32 sum,
+    taken in another order, once: within one bf16 ulp of the largest
+    output."""
+    _, _, tx, tq = _split_inputs(name, jnp.bfloat16)
+    got = _kn_split(tx, tq).float().numpy()
+    want = _plain(name.split("_k")[0], tx, tq).float().numpy()
+    np.testing.assert_allclose(got, want, atol=2.0 ** -7 * np.abs(want).max(), rtol=0)
 
 
 # ------------------------------------------------------ int8 KV cache
