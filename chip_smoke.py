@@ -10,11 +10,12 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      time, the plain version's, a library call's and the card's bound:
      K1 (flash prefill; fp32 on the CUDA cores, bf16 on the tensor cores),
      K2/K3 (paged decode attention, bf16/fp32 and int8 pools) and K4-K7
-     (quantized products; K5/K6 in bf16 on the tensor cores) at the TPU
-     kernel gate's shapes and at the 7B shapes of the main paths, K1 also
-     at 2048-token prompts with the 7B and the Llama-3.2-1B heads, K2/K3
-     also at ~2000-key contexts (B 4, and B 1 with one live slot), K5/K6
-     also at M = 2048 (a 2000-token prompt's prefill);
+     (quantized products; in bf16 on the tensor cores) at the TPU kernel
+     gate's shapes and at the 7B shapes of the main paths, K1 also at
+     2048-token prompts with the 7B and the Llama-3.2-1B heads, K2/K3 also
+     at ~2000-key contexts (B 4, and B 1 with one live slot), K4-K7 also at
+     M = 2048 (a 2000-token prompt's prefill), K4/K7 also on the
+     Llama-3.2-1B wk at M = 1;
   4. exact greedy AR == self-spec in fp32 at a small width, through the
      kernels: the dense base (K1, 4 launches per prefill), int8 and int4
      bases, int8 and int4 drafters over the dense base (== dense AR), and
@@ -28,9 +29,9 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      2000-token prompt;
   6. the quantized paths at full width, from phase 5's weights: int8 and
      int4 bases (AR and spec, then the time to first token of a 200- and a
-     2000-token prompt with K5/K6's launches and share) and int8 and int4
-     drafters over the bf16 base (spec), with tok/s, acceptance, launches
-     and greedy agreement;
+     2000-token prompt with K4/K7's and K5/K6's launches and shares) and
+     int8 and int4 drafters over the bf16 base (spec), with tok/s,
+     acceptance, launches and greedy agreement;
   7. paged continuous serving at full width, from phase 5's weights:
      ``ContinuousBatchScheduler`` with 4 slots, pages of 128 and a pool
      that makes requests wait for pages, eight requests over a bf16 pool
@@ -42,7 +43,7 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      streams' own bf16 noise of the teacher-forced greedy choice;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
 Every kernel count is set to 0 just before each run of phases 5, 6 and 7
-and read just after it; every K1, K5 and K6 launch of those bf16 phases
+and read just after it; every K1 and K4-K7 launch of those bf16 phases
 must have taken the tensor-core route, and every one of phase 4 (fp32) the
 CUDA-core route.
 
@@ -125,7 +126,8 @@ def kernel_counters():
             "int4_matmul_t": qmm.int4_matmul_t}
 
 
-TENSOR_CORE_ROUTES = ("flash_prefill", "quant_matmul", "int4_matmul")  # K1, K5, K6
+TENSOR_CORE_ROUTES = ("flash_prefill", "quant_matmul_t", "quant_matmul", "int4_matmul",
+                      "int4_matmul_t")  # K1, K4-K7
 
 
 def reset_counts():
@@ -136,7 +138,7 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches per kernel, and of K1's, K5's and K6's those of their
+    """Launches per kernel, and of K1's and K4-K7's those of their
     tensor-core (bf16) routes as ``<name>_tensor_core``."""
     counts = {name: fn.launches for name, fn in kernel_counters().items()}
     for name in TENSOR_CORE_ROUTES:
@@ -265,12 +267,14 @@ QUANT_MAIN = {"quant_matmul_t": "quant_matmul_t_7b_wq_m1",
 def quant_cases():
     """(name, kernel, M, K, N, x dtype, tol). The gate cases and their
     tolerances are the TPU kernel gate's (scripts/kernel_gate.py, N(0, 1)
-    weights). The 7B cases are the main paths' products (wq [N, K] =
-    [4096, 4096]; wo, w_gate and w_down [K, N] = [4096, 4096], [4096, 11008]
-    and [11008, 4096]) at M = 1 (AR step), 7 (verify window) and 256
-    (prefill) in bf16, with N(0, 0.02) weights; tol None there means one
-    bf16 ulp (2^-7) of the largest output: kernel and plain version round
-    the same fp32 sum, taken in another order, once."""
+    weights). The 7B cases are the main paths' products (wq, wk and wv
+    [N, K] = [4096, 4096]; wo, w_gate and w_down [K, N] = [4096, 4096],
+    [4096, 11008] and [11008, 4096]) at M = 1 (AR step), 7 (verify window),
+    256 (a 200-token prefill) and 2048 (a 2000-token prefill) in bf16, with
+    N(0, 0.02) weights, and the Llama-3.2-1B wk [N, K] = [512, 2048] at
+    M = 1; tol None there means one bf16 ulp (2^-7) of the largest output:
+    kernel and plain version round the same fp32 sum, taken in another
+    order, once."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
         ("quant_matmul_gate", "quant_matmul", 64, 256, 384, f32, 0.05),
@@ -279,19 +283,23 @@ def quant_cases():
         ("int4_matmul_t_gate", "int4_matmul_t", 7, 1024, 512, bf16, 1.5),
     ]
     for m in (1, 7, 256, 2048):
-        if m < 2048:
-            for kern in ("quant_matmul_t", "int4_matmul_t"):
-                cases.append((f"{kern}_7b_wq_m{m}", kern, m, 4096, 4096, bf16, None))
+        for kern in ("quant_matmul_t", "int4_matmul_t"):
+            for layer, k, n in NK_LAYERS if m == 1 else NK_LAYERS[:1]:
+                cases.append((f"{kern}_{layer}_m{m}", kern, m, k, n, bf16, None))
         for kern in ("quant_matmul", "int4_matmul"):
             for layer, k, n in KN_LAYERS:
                 cases.append((f"{kern}_7b_{layer}_m{m}", kern, m, k, n, bf16, None))
     return cases
 
 
-# the [K, N] products of a 7B layer: (name, K, N, calls per layer); w_up
-# has w_gate's shape
+# the [K, N] products of a 7B layer: (name, K, N), called once per layer
+# (KN_CALLS times); w_up has w_gate's shape
 KN_LAYERS = (("wo", 4096, 4096), ("wgate", 4096, 11008), ("wdown", 11008, 4096))
 KN_CALLS = {"wo": 1, "wgate": 2, "wdown": 1}
+# the [N, K] products: the 7B wq (wk and wv have its shape: three calls a
+# layer) and the Llama-3.2-1B wk (and wv), whose N of 512 gives few blocks
+NK_LAYERS = (("7b_wq", 4096, 4096), ("1b_wk", 2048, 512))
+NK_CALLS = 3
 
 
 def check_quant_kernels():
@@ -598,7 +606,7 @@ def exact_fp32_greedy():
     def launched(n, want):
         """Exact counts for the kernels in ``want`` (None: at least one), 0
         for every other quantized product, one K1 launch per layer, and
-        every K1, K5 and K6 launch on its fp32 (CUDA-core) route."""
+        every K1 and K4-K7 launch on its fp32 (CUDA-core) route."""
         return n["flash_prefill"] == nl and all(
             n[f"{k}_tensor_core"] == 0 for k in TENSOR_CORE_ROUTES) and all(
             (n[k] > 0 if want.get(k, 0) is None else n[k] == want.get(k, 0))
@@ -710,7 +718,7 @@ def exact_fp32_paged():
                                    eos, m) for p, m in zip(prompts, budgets)]
         same = [got[i] == want[i] for i in range(len(prompts))]
         quant_ok = (n["quant_matmul_t"] > 0 and n["quant_matmul"] > 0
-                    and n["quant_matmul_tensor_core"] == 0) \
+                    and n["quant_matmul_t_tensor_core"] == n["quant_matmul_tensor_core"] == 0) \
             if base is not params else n["quant_matmul_t"] == n["quant_matmul"] == 0
         other = "paged_decode_attention" if kv_quant else "paged_decode_attention_q8"
         good = (all(same) and n[kernel] > 0 and n[kernel] % per_round == 0
@@ -799,15 +807,15 @@ def generate_timed(eng, prompt, gen_cfg, eos):
 TTFT_PROMPTS = ((200, 256, "flash_prefill_7b_bf16"), (2000, 2048, "flash_prefill_7b_long_bf16"))
 
 
-def time_to_first_token(eng, cfg, eos, kres, qres=None, kern=None, label="7b ttft"):
+def time_to_first_token(eng, cfg, eos, kres, qres=None, kerns=None, label="7b ttft"):
     """Wall ms of ``generate(max_steps=1)`` (the prompt's prefill and one
     token) for a 200- and a 2000-token prompt, each after a warm-up run of
     the same prompt, with K1's launches and their device time at phase 3's
-    time for that prefill shape (buckets 256 and 2048). With ``kern`` (K5
-    or K6, on a quantized base) also its launches, their device time at
-    phase 3's times of the layer's [K, N] products at M = the bucket, and
-    that time's share of the wall. Returns (stats, launch counts summed
-    over the timed runs)."""
+    time for that prefill shape (buckets 256 and 2048). With ``kerns`` =
+    (K4 or K7, K5 or K6) on a quantized base also each one's launches,
+    their device time at phase 3's times of the layer's [N, K] (wq, wk,
+    wv) or [K, N] products at M = the bucket, and that time's share of the
+    wall. Returns (stats, launch counts summed over the timed runs)."""
     from layerskip_tpu_torch.config import GenerationConfig
 
     rng = np.random.default_rng(4)
@@ -823,17 +831,22 @@ def time_to_first_token(eng, cfg, eos, kres, qres=None, kern=None, label="7b ttf
         k1 = counts["flash_prefill"]
         st = dict(ms=secs * 1e3, tokens=len(toks), k1_launches=k1,
                   k1_device_ms=k1 * kres[case]["ms"], k1_case=case)
-        if kern:
-            layer_ms = sum(KN_CALLS[name] * qres[f"{kern}_7b_{name}_m{bucket}"]["ms"]
-                           for name, _, _ in KN_LAYERS)
-            st.update(kn_launches=counts[kern], kn_device_ms=cfg.num_hidden_layers * layer_ms)
+        if kerns:
+            nk, kn = kerns
+            nk_ms = NK_CALLS * qres[f"{nk}_7b_wq_m{bucket}"]["ms"]
+            kn_ms = sum(KN_CALLS[name] * qres[f"{kn}_7b_{name}_m{bucket}"]["ms"]
+                        for name, _, _ in KN_LAYERS)
+            st.update(nk_launches=counts[nk], nk_device_ms=cfg.num_hidden_layers * nk_ms,
+                      kn_launches=counts[kn], kn_device_ms=cfg.num_hidden_layers * kn_ms)
+            st["nk_share"] = st["nk_device_ms"] / st["ms"]
             st["kn_share"] = st["kn_device_ms"] / st["ms"]
         stats[n] = st
     log(f"[{label}] generate(max_steps=1), wall ms after a warm-up: " + "; ".join(
         f"{n}-token prompt {s['ms']:.2f} ms, K1 {s['k1_launches']} launches x "
         f"{kres[s['k1_case']]['ms']:.4f} ms ({s['k1_case']}) = {s['k1_device_ms']:.3f} ms"
-        + (f", {kern} {s['kn_launches']} launches = {s['kn_device_ms']:.3f} ms at phase 3's "
-           f"M = {bucket} times ({s['kn_share']:.1%} of the wall)" if kern else "")
+        + "".join(f", {k} {s[f'{p}_launches']} launches = {s[f'{p}_device_ms']:.3f} ms at "
+                  f"phase 3's M = {bucket} times ({s[f'{p}_share']:.1%} of the wall)"
+                  for p, k in zip(("nk", "kn"), kerns or ()))
         for (n, s), (_, bucket, _) in zip(stats.items(), TTFT_PROMPTS)))
     return stats, total
 
@@ -948,10 +961,11 @@ def quantized_full_width(params, cfg, prompt, bf16_ar, bf16_tie, kres, qres):
                 and n_sp[k_nk] > 0 and n_sp[k_kn] > 0
                 and all(n_ar[k] == n_sp[k] == 0 for k in others))
         name = f"int{bits}_base"
-        ttft, ttft_counts = time_to_first_token(eng, cfg, eos, kres, qres, k_kn,
+        ttft, ttft_counts = time_to_first_token(eng, cfg, eos, kres, qres, (k_nk, k_kn),
                                                 f"7b {name} ttft")
         add(ttft_counts)
-        good &= all(s["tokens"] == 1 and s["kn_launches"] == 4 * nl for s in ttft.values())
+        good &= all(s["tokens"] == 1 and s["nk_launches"] == 3 * nl
+                    and s["kn_launches"] == 4 * nl for s in ttft.values())
         ok &= good
         stats[name] = dict(ar_tok_s=len(ar_toks) / t_ar, spec_tok_s=len(sp_toks) / t_sp,
                            acceptance=acceptance, spec_eq_ar=agree, first_tie=tie,
@@ -1227,13 +1241,14 @@ def main() -> int:
         f"{counts['flash_prefill_tensor_core']} on the tensor-core route -> "
         f"{'PASS' if ok_route else 'FAIL'}")
     ok_full &= ok_route
-    # and every K5/K6 launch of them the tensor-core route
-    ok_qroute = all(counts[f"{k}_tensor_core"] == counts[k] > 0
-                    for k in ("quant_matmul", "int4_matmul"))
-    log(f"[k5/k6 route] phases 5-7: " + ", ".join(
-        f"{k} {counts[k]} launches, {counts[f'{k}_tensor_core']} on the tensor cores"
-        for k in ("quant_matmul", "int4_matmul")) + f" -> {'PASS' if ok_qroute else 'FAIL'}")
-    ok_quant &= ok_qroute
+    # and every K4-K7 launch of them the tensor-core route
+    for label, kinds in (("k4/k7", ("quant_matmul_t", "int4_matmul_t")),
+                         ("k5/k6", ("quant_matmul", "int4_matmul"))):
+        ok_qroute = all(counts[f"{k}_tensor_core"] == counts[k] > 0 for k in kinds)
+        log(f"[{label} route] phases 5-7: " + ", ".join(
+            f"{k} {counts[k]} launches, {counts[f'{k}_tensor_core']} on the tensor cores"
+            for k in kinds) + f" -> {'PASS' if ok_qroute else 'FAIL'}")
+        ok_quant &= ok_qroute
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} {json.dumps(stats)} "
         f"{json.dumps(qstats)} {json.dumps(sstats)} launches={json.dumps(counts)} "

@@ -34,27 +34,43 @@
 // prefill it is ~500 flop/byte (int8) and ~1000 (int4): the bf16 tensor
 // cores bound it (23 GFLOP, 23 us at 989 TFLOP/s for w_gate).
 //
-// [K, N] weights in bf16 (K5, K6: wo, w_gate, w_up, w_down) run on the
-// tensor cores, qmm_kn_tc_kernel:
+// In bf16 all four run on the tensor cores, in one kernel template
+// (qmm_tc_kernel) for both weight layouts: [K, N] (K5, K6: wo, w_gate,
+// w_up, w_down) and [N, K] (K4, K7: wq, wk, wv).
 //   * mma.sync m16n8k16 with the weight as the row operand (16 columns a
 //     fragment) and the tokens as the column operand (8 a fragment): M = 1
 //     wastes nothing the bytes bound, M = 256 reads each weight tile once
 //     per 128 tokens. One instruction shape at every M.
-//   * The weight is dequantized in registers straight into the fragment:
-//     an int4 byte of the [K/2, N] layout holds two consecutive K of one
-//     column, one bf16x2 register; int8 pairs come from two rows. A byte
-//     becomes fp32 by the magic-number trick (0x4B0000xx is 2^23 + xx), one
-//     subtraction gives the exact value; int8 takes the upper halves of two
-//     such values as its bf16 pair (exact), int4 multiplies by its group's
-//     scale in fp32 and one cvt.rn.bf16x2.f32 rounds a pair. Products of
-//     bf16 x and these bf16 weights are exact, so the tensor cores compute
-//     the function above; only the order of the fp32 sums differs.
-//   * Tiles of 64 K (packed weight [64 or 32 rows, 128 columns], x [tokens,
-//     64], int4 scales [1, 128]) come in by TMA into a ring of 4-6 stages on
-//     mbarriers, 128-byte swizzled so the fragment loads are free of bank
-//     conflicts. Where TMA cannot read a tensor (N % 16, a pointer or row
-//     stride not 16-byte aligned, an int4 group that is not a multiple of
-//     64), the block loads the same tiles itself: same layout, same bits.
+//   * The weight is dequantized in registers straight into the fragment.
+//     [K, N]: an int4 byte holds two consecutive K of one column, one bf16x2
+//     register; int8 pairs come from two rows. [N, K]: K is contiguous, so a
+//     lane reads 16 consecutive K of a weight row (16 bytes of int8, 8 of
+//     int4) in one shared load and hands them to its fragment slots over
+//     the tile's four k16 steps: lane c of a quad takes K 16c .. 16c + 15,
+//     and in step s slots 2c, 2c + 1 get K 16c + 4s + {0, 1} and slots
+//     2c + 8, 2c + 9 get 16c + 4s + {2, 3}; x is read with the same
+//     permutation (one 16-byte load of 8 consecutive bf16 per two steps).
+//     Which K share one MMA thus differs between the layouts, and depends
+//     on K alone in both. A byte becomes fp32 by the magic-number trick
+//     (0x4B0000xx is 2^23 + xx), one subtraction gives the exact value;
+//     int8 takes the upper halves of two such values as its bf16 pair
+//     (exact), int4 multiplies by its group's scale in fp32 and one
+//     cvt.rn.bf16x2.f32 rounds a pair. Products of bf16 x and these bf16
+//     weights are exact, so the tensor cores compute the function above;
+//     only the order of the fp32 sums differs.
+//   * Tiles of 64 K come in by TMA into a ring of 4-6 stages on mbarriers:
+//     x [tokens, 64] and the [K, N] weight [64 or 32 rows, 128 columns]
+//     128-byte swizzled (fragment loads free of bank conflicts), the [N, K]
+//     weight [128 rows, 64 or 32 bytes] unswizzled (a lane's rows are 8
+//     apart and its quad's loads 16 or 8 bytes apart, so every phase of a
+//     warp's load hits distinct banks). [K, N] int4 scales come as one row
+//     [1, 128] per tile; [N, K] int4 scales, one 4-byte group per row below
+//     TMA's 16-byte box, are loaded by each lane one tile ahead. Where TMA
+//     cannot read a tensor (a pointer or row stride not 16-byte aligned:
+//     [K, N] N % 16, [N, K] K % 16 for int8 and K % 32 for int4; a [K, N]
+//     int4 group that is not a multiple of 64), the block loads the same
+//     tiles itself: same layout, same bits. An int4 group that is not a
+//     multiple of 64 takes its scales per element.
 //   * K splits into tc_slices(K) slices (at most 8, at least 4 tiles each):
 //     a cluster of that many blocks computes one output tile, one slice
 //     each, and the slices' fp32 partials are added in rank order through
@@ -63,21 +79,20 @@
 //     at the 7B shapes instead of 128-344.
 //   * The token tile (8, 32 or 128 rows a block) follows M; it changes no
 //     row's sums.
-// Everything else runs on the CUDA cores (this file's first design):
-//   [K, N] weights in fp32 (qmm_kn_kernel): threads run along N; a block of
-//     256 threads owns 32 output columns and BM rows; 8 threads cover the
-//     32 bytes of a weight row (one 32-bit load each, 4 columns), 32 thread
-//     rows take 16 consecutive packed rows each per 512-row chunk, and the
-//     32 partial sums of each output are added in a fixed order through
-//     shared memory.
-//   [N, K] weights (K4, K7; qmm_nk_kernel): K is contiguous, so a warp reads
-//     along K. Each warp owns 4 output columns and each lane 16 consecutive
-//     bytes of each (one 16-byte load per column per 512-byte chunk); the
-//     lane sums are added by a butterfly of warp shuffles, which gives every
-//     lane the same value. x is staged in shared memory padded by one float
-//     per lane segment, so the lanes read distinct banks.
-// In both, the chunk of x that the block needs is staged in shared memory as
-// fp32 once per chunk and shared by every column of the block.
+// In fp32 they run on the CUDA cores (this file's first design), with the
+// chunk of x that a block needs staged in shared memory once per chunk and
+// shared by every column of the block:
+//   [K, N] (qmm_kn_kernel): threads run along N; a block of 256 threads
+//     owns 32 output columns and BM rows; 8 threads cover the 32 bytes of a
+//     weight row (one 32-bit load each, 4 columns), 32 thread rows take 16
+//     consecutive packed rows each per 512-row chunk, and the 32 partial
+//     sums of each output are added in a fixed order through shared memory.
+//   [N, K] (qmm_nk_kernel): K is contiguous, so a warp reads along K. Each
+//     warp owns 4 output columns and each lane 16 consecutive bytes of each
+//     (one 16-byte load per column per 512-byte chunk); the lane sums are
+//     added by a butterfly of warp shuffles, which gives every lane the same
+//     value. x is padded by one float per lane segment, so the lanes read
+//     distinct banks.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums only: no cu* call is linked (no -lcuda)
@@ -88,7 +103,6 @@
 
 #include <atomic>
 #include <mutex>
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -97,59 +111,32 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBN = 32;  // output columns per block
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-// An fp32 value rounded to T and back: the dequantized int4 weight in x's dtype.
-template <typename T>
-__device__ __forceinline__ float round_to(float w) {
-  return to_f32(from_f32<T>(w));
-}
-
 struct Args {
-  const void* x;
+  const float* x;
   const uint8_t* q;
   const float* scale;
-  void* out;
+  float* out;
   int64_t x_stride;  // elements between rows of x
   int M, K, N, group;
   int vec;  // the weight rows allow aligned vector loads
 };
 
-// Stage x[m0 : m0 + BM, e0 : e0 + EPC] into shared memory as fp32 (zeros
-// past M and K). With SEG > 0, one float of padding follows every SEG
-// elements.
+// Stage x[m0 : m0 + BM, e0 : e0 + EPC] into shared memory (zeros past M
+// and K). With SEG > 0, one float of padding follows every SEG elements.
 template <int EPC, int SEG>
 __host__ __device__ constexpr int padded_row() {
   if constexpr (SEG > 0) return EPC + EPC / SEG;
   return EPC;
 }
 
-template <typename T, int BM, int EPC, int SEG>
-__device__ __forceinline__ void stage_x(float* xs, const Args& a, int m0,
-                                        int e0) {
+template <int BM, int EPC, int SEG>
+__device__ __forceinline__ void stage_x(float* xs, const Args& a, int m0, int e0) {
   constexpr int XS = padded_row<EPC, SEG>();
-  const T* x = static_cast<const T*>(a.x);
   for (int i = threadIdx.x; i < BM * EPC; i += kThreads) {
     const int m = i / EPC, e = i % EPC;
     const int k = e0 + e;
     float v = 0.f;
-    if (m0 + m < a.M && k < a.K) v = to_f32(x[(int64_t)(m0 + m) * a.x_stride + k]);
+    if (m0 + m < a.M && k < a.K) v = a.x[(int64_t)(m0 + m) * a.x_stride + k];
     int idx = m * XS + e;
     if constexpr (SEG > 0) idx += e / SEG;
     xs[idx] = v;
@@ -158,7 +145,7 @@ __device__ __forceinline__ void stage_x(float* xs, const Args& a, int m0,
 
 // ------------------------------------------------ [K, N] fp32, CUDA cores
 
-template <typename T, bool INT4, int BM>
+template <bool INT4, int BM>
 __global__ void __launch_bounds__(kThreads) qmm_kn_kernel(const Args a) {
   constexpr int TX = 8;             // threads along N, 4 columns each
   constexpr int TY = kThreads / TX;  // 32 thread rows along K
@@ -183,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) qmm_kn_kernel(const Args a) {
     for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
 
   for (int c0 = 0; c0 < Kp; c0 += CH) {
-    stage_x<T, BM, EPC, 0>(smem, a, m0, c0 * EL);
+    stage_x<BM, EPC, 0>(smem, a, m0, c0 * EL);
     __syncthreads();
     uint32_t wv[R];
 #pragma unroll
@@ -221,8 +208,8 @@ __global__ void __launch_bounds__(kThreads) qmm_kn_kernel(const Args a) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const uint32_t byte = (wv[r] >> (8 * c)) & 0xFFu;
-          w0[c] = round_to<T>((float)((int)(byte & 0xFu) - 8) * s[c]);
-          w1[c] = round_to<T>((float)((int)(byte >> 4) - 8) * s[c]);
+          w0[c] = (float)((int)(byte & 0xFu) - 8) * s[c];
+          w1[c] = (float)((int)(byte >> 4) - 8) * s[c];
         }
       } else {
 #pragma unroll
@@ -254,21 +241,20 @@ __global__ void __launch_bounds__(kThreads) qmm_kn_kernel(const Args a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) red[(ty * BM + m) * kBN + 4 * tx + c] = acc[m][c];
   __syncthreads();
-  T* out = static_cast<T*>(a.out);
   for (int i = tid; i < BM * kBN; i += kThreads) {
     const int m = i / kBN, col = i % kBN, n = n0 + col;
     float sum = 0.f;
     for (int t = 0; t < TY; ++t) sum += red[(t * BM + m) * kBN + col];
     if (m0 + m < a.M && n < a.N) {
       if (!INT4) sum *= a.scale[n];
-      out[(int64_t)(m0 + m) * a.N + n] = from_f32<T>(sum);
+      a.out[(int64_t)(m0 + m) * a.N + n] = sum;
     }
   }
 }
 
-// ---------------------------------------------------------------- [N, K]
+// ------------------------------------------------ [N, K] fp32, CUDA cores
 
-template <typename T, bool INT4, int BM>
+template <bool INT4, int BM>
 __global__ void __launch_bounds__(kThreads) qmm_nk_kernel(const Args a) {
   constexpr int NC = 4;             // output columns per warp
   constexpr int VB = 16;            // packed bytes per lane per chunk
@@ -296,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) qmm_nk_kernel(const Args a) {
     for (int j = 0; j < NC; ++j) acc[m][j] = 0.f;
 
   for (int c0 = 0; c0 < Kp; c0 += CH) {
-    stage_x<T, BM, EPC, SEG>(xs, a, m0, c0 * EL);
+    stage_x<BM, EPC, SEG>(xs, a, m0, c0 * EL);
     __syncthreads();
     const int kb = c0 + lane * VB;
     uint32_t wv[NC][4];
@@ -336,8 +322,8 @@ __global__ void __launch_bounds__(kThreads) qmm_nk_kernel(const Args a) {
             const int n = nb + j, k = 2 * (kb + b);
             sj = (n < a.N && k < a.K) ? a.scale[(int64_t)n * KG + k / a.group] : 0.f;
           }
-          w0[j] = round_to<T>((float)((int)(byte & 0xFu) - 8) * sj);
-          w1[j] = round_to<T>((float)((int)(byte >> 4) - 8) * sj);
+          w0[j] = (float)((int)(byte & 0xFu) - 8) * sj;
+          w1[j] = (float)((int)(byte >> 4) - 8) * sj;
         } else {
           w0[j] = (float)(int8_t)byte;
         }
@@ -372,21 +358,18 @@ __global__ void __launch_bounds__(kThreads) qmm_nk_kernel(const Args a) {
       acc[m][j] = v;
     }
   if (lane == 0) {
-    T* out = static_cast<T*>(a.out);
 #pragma unroll
     for (int m = 0; m < BM; ++m)
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         const int n = nb + j;
-        if (m0 + m < a.M && n < a.N) {
-          const float v = INT4 ? acc[m][j] : acc[m][j] * a.scale[n];
-          out[(int64_t)(m0 + m) * a.N + n] = from_f32<T>(v);
-        }
+        if (m0 + m < a.M && n < a.N)
+          a.out[(int64_t)(m0 + m) * a.N + n] = INT4 ? acc[m][j] : acc[m][j] * a.scale[n];
       }
   }
 }
 
-// ------------------------------------------------- [K, N] bf16, tensor cores
+// ------------------------------------------------------ bf16, tensor cores
 
 constexpr int kMaxDevices = 64;
 constexpr int kTcBN = 128;          // weight columns per block: 4 warps x 32
@@ -395,25 +378,28 @@ constexpr int kTcMaxSlices = 8;     // K slices of one output tile, at most
 constexpr int kTcMinTiles = 4;      // tiles per slice, at least, once K splits
 constexpr int kTcRedStride = kTcBN + 4;  // floats per row of the merge buffer
 
-// The K slices of every [K, N] bf16 product: a function of K alone, so a
-// row's bits never depend on M, on the other rows or on the card.
+// The K slices of every bf16 product: a function of K alone, so a row's
+// bits never depend on M, on the other rows or on the card.
 __host__ __device__ inline int tc_slices(int K) {
   const int s = (K + kTcKT - 1) / kTcKT / kTcMinTiles;
   return s < 1 ? 1 : (s > kTcMaxSlices ? kTcMaxSlices : s);
 }
 
-// WT warpgroups of 4 warps along the tokens, TT tokens each; STAGES tiles
-// in the copy ring. A stage holds the packed weight tile [kWRows][128 B],
-// the x tile [BT][64 bf16] (both with the 128-byte swizzle) and, for int4,
-// one row of 128 scales.
-template <bool INT4, int WT, int TT, int STAGES>
+// WT groups of warps along the tokens, TT tokens each, of kWN warps along
+// the 128 columns, FR fragments (16 columns each) a warp; STAGES tiles in
+// the copy ring. A stage holds the packed weight tile ([K, N]: kKp rows
+// of 128 bytes, 128-byte swizzle; [N, K]: 128 rows of kKp bytes, no
+// swizzle), the x tile [BT][64 bf16] (128-byte swizzle) and, for [K, N]
+// int4, one row of 128 scales.
+template <bool NK, bool INT4, int WT, int TT, int STAGES, int FR>
 struct TcShape {
-  static constexpr int kThreads = 128 * WT;
+  static constexpr int kWN = kTcBN / (16 * FR);
+  static constexpr int kThreads = 32 * kWN * WT;
   static constexpr int BT = WT * TT;
-  static constexpr int kWRows = INT4 ? kTcKT / 2 : kTcKT;
-  static constexpr int kWBytes = kWRows * kTcBN;
+  static constexpr int kKp = INT4 ? kTcKT / 2 : kTcKT;  // packed bytes of a tile's K
+  static constexpr int kWBytes = kKp * kTcBN;
   static constexpr int kXBytes = BT * kTcKT * 2;
-  static constexpr int kSBytes = INT4 ? kTcBN * 4 : 0;
+  static constexpr int kSBytes = INT4 && !NK ? kTcBN * 4 : 0;
   static constexpr int kStageBytes = (kWBytes + kXBytes + kSBytes + 1023) / 1024 * 1024;
   static constexpr int kRingBytes = STAGES * kStageBytes;
   static constexpr int kRedBytes = BT * kTcRedStride * 4;
@@ -510,6 +496,13 @@ __device__ __forceinline__ uint32_t deq8(uint32_t wa, uint32_t wb) {
                      __float_as_uint(magic<B>(wb) - 8388736.f), 0x7632);
 }
 
+// int8: bytes B (element k) and B + 1 (element k + 1) of one word, as deq8
+template <int B>
+__device__ __forceinline__ uint32_t deq8_pair(uint32_t w) {
+  return __byte_perm(__float_as_uint(magic<B>(w) - 8388736.f),
+                     __float_as_uint(magic<B + 1>(w) - 8388736.f), 0x7632);
+}
+
 // int4: the low (element k) and high (element k + 1) nibble of byte B,
 // given as lo = w & 0x0F0F0F0F and hi = (w >> 4) & 0x0F0F0F0F: (nibble - 8)
 // exactly, times the group's scale in fp32, rounded to bf16 (nearest even)
@@ -520,8 +513,8 @@ __device__ __forceinline__ uint32_t deq4(uint32_t lo, uint32_t hi, float s) {
 
 struct TcArgs {
   const void* x;       // [M, K] bf16, row stride x_stride
-  const uint8_t* q;    // [K, N] int8 or [K/2, N] packed int4
-  const float* scale;  // [N] or [K/G, N]
+  const uint8_t* q;    // [K, N] / [N, K] int8 or [K/2, N] / [N, K/2] packed int4
+  const float* scale;  // [N], or [K/G, N] / [N, K/G]
   void* out;           // [M, N] bf16, contiguous
   int64_t x_stride;
   int M, K, N, group;
@@ -534,15 +527,20 @@ struct TcArgs {
 // added in rank order through distributed shared memory.
 //
 // The weight is the MMA's A operand (16 columns a fragment), the tokens
-// its B operand (8 a fragment): warp (wn, wt) owns columns wn*32 .. +31
-// and tokens wt*TT .. +TT-1. Lane (g = lane / 4, c = lane % 4) holds, in
-// fragment f, weight columns 4g + 2f (MMA row g) and 4g + 2f + 1 (row
-// g + 8), so its four columns 4g .. 4g + 3 are one 32-bit word of a
-// weight row and one float4 of the accumulators.
-template <bool INT4, int WT, int TT, int STAGES>
-__global__ void __launch_bounds__(128 * WT, WT == 1 ? 4 : 2)
-    qmm_kn_tc_kernel(const __grid_constant__ TcArgs a, const __grid_constant__ TcMaps maps) {
-  using Sh = TcShape<INT4, WT, TT, STAGES>;
+// its B operand (8 a fragment): warp (wn, wt) owns columns wn*16*FR ..
+// +16*FR-1 and tokens wt*TT .. +TT-1. Lane (g = lane / 4, c = lane % 4)
+// holds, in fragment f, MMA rows g and g + 8 of two weight columns: [K, N]
+// (FR = 2) columns 4g + 2f and 4g + 2f + 1, so its four columns 4g ..
+// 4g + 3 are one 32-bit word of a weight row and one float4 of the
+// accumulators; [N, K] columns g + 16f and g + 16f + 8, weight rows 8
+// apart. FR = 1 halves each warp's share of a tile and doubles the warps,
+// for the short chains of a few tokens; no column's sums change with it.
+template <bool NK, bool INT4, int WT, int TT, int STAGES, int FR>
+__global__ void __launch_bounds__(TcShape<NK, INT4, WT, TT, STAGES, FR>::kThreads,
+                                  FR == 1 ? 3 : (WT == 1 ? 4 : 2))
+    qmm_tc_kernel(const __grid_constant__ TcArgs a, const __grid_constant__ TcMaps maps) {
+  using Sh = TcShape<NK, INT4, WT, TT, STAGES, FR>;
+  static_assert(NK || FR == 2, "[K, N] tiles pair each lane's columns");
   constexpr int NI = TT / 8;  // token fragments per warp
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[STAGES];
@@ -553,31 +551,42 @@ __global__ void __launch_bounds__(128 * WT, WT == 1 ? 4 : 2)
   const int S = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wn = warp % 4, wt = warp / 4;
+  const int wn = warp % Sh::kWN, wt = warp / Sh::kWN;
   const int g = lane / 4, c = lane % 4;
   const int n0 = blockIdx.x / S * kTcBN;
   const int m0 = blockIdx.y * Sh::BT;
   const int tiles = (a.K + kTcKT - 1) / kTcKT;
   const int t_lo = rank * tiles / S;
   const int nt = (rank + 1) * tiles / S - t_lo;
-  const int cb = wn * 32 + 4 * g;  // this lane's first column in the block
+  const int kp_end = INT4 ? a.K / 2 : a.K;  // packed bytes of K
+  // this lane's first weight column in the block
+  const int cb = NK ? wn * 16 * FR + g : wn * 32 + 4 * g;
 
   auto issue = [&](int i) {  // slice tile i into stage i % STAGES (one thread)
     const int st = i % STAGES, kt = t_lo + i;
     const uint32_t dst = base + st * Sh::kStageBytes, bar = smem_addr(&bars[st]);
     mbar_expect_tx(bar, Sh::kWBytes + Sh::kXBytes + Sh::kSBytes);
-    tma_load_2d(dst, &maps.w, bar, n0, kt * Sh::kWRows);
+    if constexpr (NK)
+      tma_load_2d(dst, &maps.w, bar, kt * Sh::kKp, n0);
+    else
+      tma_load_2d(dst, &maps.w, bar, n0, kt * Sh::kKp);
     tma_load_2d(dst + Sh::kWBytes, &maps.x, bar, kt * kTcKT, m0);
-    if constexpr (INT4)
+    if constexpr (INT4 && !NK)
       tma_load_2d(dst + Sh::kWBytes + Sh::kXBytes, &maps.s, bar, n0, kt * kTcKT / a.group);
   };
   // the same tile, loaded by the block's threads (zeros past K, N and M)
   auto load = [&](int i, unsigned char* sp) {
-    const int kt = t_lo + i, kp_end = INT4 ? a.K / 2 : a.K;
-    for (int e = tid; e < Sh::kWRows * kTcBN; e += Sh::kThreads) {
-      const int r = e / kTcBN, col = e % kTcBN;
-      const int kp = kt * Sh::kWRows + r, n = n0 + col;
-      sp[swz(r, col)] = (kp < kp_end && n < a.N) ? a.q[(int64_t)kp * a.N + n] : 0;
+    const int kt = t_lo + i;
+    for (int e = tid; e < Sh::kWBytes; e += Sh::kThreads) {
+      if constexpr (NK) {
+        const int r = e / Sh::kKp, b = e % Sh::kKp;
+        const int n = n0 + r, kp = kt * Sh::kKp + b;
+        sp[e] = (kp < kp_end && n < a.N) ? a.q[(int64_t)n * kp_end + kp] : 0;
+      } else {
+        const int r = e / kTcBN, col = e % kTcBN;
+        const int kp = kt * Sh::kKp + r, n = n0 + col;
+        sp[swz(r, col)] = (kp < kp_end && n < a.N) ? a.q[(int64_t)kp * a.N + n] : 0;
+      }
     }
     const uint16_t* x = static_cast<const uint16_t*>(a.x);
     for (int e = tid; e < Sh::BT * kTcKT; e += Sh::kThreads) {
@@ -587,13 +596,31 @@ __global__ void __launch_bounds__(128 * WT, WT == 1 ? 4 : 2)
           (m < a.M && k < a.K) ? x[(int64_t)m * a.x_stride + k] : 0;
     }
   };
-  // the int4 scales of this lane's 4 columns at element k (0 past K and N)
-  auto scales_at = [&](int k, float (&s)[4]) {
+  // the int4 scale of weight column n (in the block) at element k (0 past
+  // K and N)
+  auto scale_at = [&](int n, int k) -> float {
+    if (k >= a.K || n0 + n >= a.N) return 0.f;
+    return NK ? a.scale[(int64_t)(n0 + n) * (a.K / a.group) + k / a.group]
+              : a.scale[(int64_t)(k / a.group) * a.N + n0 + n];
+  };
+  // [N, K] int4 with whole groups in a tile: the scales of the lane's four
+  // columns, loaded one tile ahead of their use. The group walks with the
+  // tiles (no division in the loop): tile t_lo + i is in group sg, tile sr
+  // of its tpg.
+  const bool tile_groups = a.group % kTcKT == 0;
+  const int tpg = tile_groups ? a.group / kTcKT : 1;
+  const int64_t s_row8 = INT4 ? (int64_t)8 * (a.K / a.group) : 0;  // 8 rows of scales
+  const float* s_col = a.scale + (NK ? (int64_t)(n0 + cb) * (s_row8 / 8) : 0);
+  int sg = t_lo / tpg, sr = t_lo % tpg;
+  float s_next[FR][2] = {};
+  auto tile_scales = [&]() {  // the next tile's scales, then step to the tile after it
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + cb + j;
-      s[j] = (k < a.K && n < a.N) ? a.scale[(int64_t)(k / a.group) * a.N + n] : 0.f;
-    }
+    for (int f = 0; f < FR; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        s_next[f][h] =
+            n0 + cb + 16 * f + 8 * h < a.N ? s_col[(2 * f + h) * s_row8 + sg] : 0.f;
+    if (++sr == tpg) sr = 0, ++sg;
   };
 
   if (tid == 0) {
@@ -602,11 +629,14 @@ __global__ void __launch_bounds__(128 * WT, WT == 1 ? 4 : 2)
     if (a.tma)
       for (int i = 0; i < STAGES && i < nt; ++i) issue(i);
   }
+  if constexpr (NK && INT4) {
+    if (tile_groups) tile_scales();
+  }
   __syncthreads();
 
-  float acc[2][NI][4];
+  float acc[FR][NI][4];
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
+  for (int f = 0; f < FR; ++f)
 #pragma unroll
     for (int i = 0; i < NI; ++i)
 #pragma unroll
@@ -615,6 +645,16 @@ __global__ void __launch_bounds__(128 * WT, WT == 1 ? 4 : 2)
   for (int i = 0; i < nt; ++i) {
     const int st = i % STAGES;
     unsigned char* sp = ring + st * Sh::kStageBytes;
+    float s_tile[FR][2] = {};
+    if constexpr (NK && INT4) {
+      if (tile_groups) {
+#pragma unroll
+        for (int f = 0; f < FR; ++f)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) s_tile[f][h] = s_next[f][h];
+        if (i + 1 < nt) tile_scales();
+      }
+    }
     if (a.tma) {
       mbar_wait(smem_addr(&bars[st]), (i / STAGES) & 1);
     } else {
@@ -622,92 +662,188 @@ __global__ void __launch_bounds__(128 * WT, WT == 1 ? 4 : 2)
       __syncthreads();
     }
     const unsigned char* wtile = sp;
-    const uint32_t xtile = base + st * Sh::kStageBytes + Sh::kWBytes;
-    float s4[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (INT4) {
-      if (a.tma) {  // G % 64 == 0: the whole tile is in one group
-        const float4 v =
-            *reinterpret_cast<const float4*>(sp + Sh::kWBytes + Sh::kXBytes + 4 * cb);
-        s4[0] = v.x, s4[1] = v.y, s4[2] = v.z, s4[3] = v.w;
-      }
-    }
+    if constexpr (NK) {
+      // this lane's K 16c .. 16c + 15 of the tile in its four weight rows
+      // (row g + 8h of fragment f): 16 int8 or 8 int4 bytes each
+      constexpr int kWords = INT4 ? 2 : 4;
+      uint32_t w[FR][2][kWords];
 #pragma unroll
-    for (int s = 0; s < kTcKT / 16; ++s) {
-      // A: this lane's weights at elements 2c, 2c + 1 (registers 0, 1) and
-      // 2c + 8, 2c + 9 (registers 2, 3) of the step, for columns 4g + 2f
-      // (even registers) and 4g + 2f + 1 (odd)
-      uint32_t af[2][4];
+      for (int f = 0; f < FR; ++f)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned char* p = wtile + (cb + 16 * f + 8 * h) * Sh::kKp + 4 * kWords * c;
+          if constexpr (INT4) {
+            const uint2 v = *reinterpret_cast<const uint2*>(p);
+            w[f][h][0] = v.x;
+            w[f][h][1] = v.y;
+          } else {
+            const uint4 v = *reinterpret_cast<const uint4*>(p);
+            w[f][h][0] = v.x ^ 0x80808080u;
+            w[f][h][1] = v.y ^ 0x80808080u;
+            w[f][h][2] = v.z ^ 0x80808080u;
+            w[f][h][3] = v.w ^ 0x80808080u;
+          }
+        }
+#pragma unroll
+      for (int p2 = 0; p2 < 2; ++p2) {
+        // A of steps s = 2 p2 + u: registers 0 and 1 (rows g, g + 8) take
+        // K 16c + 4s + {0, 1}, registers 2 and 3 take 16c + 4s + {2, 3}
+        uint32_t af[2][FR][4];
+#pragma unroll
+        for (int f = 0; f < FR; ++f) {
+          if constexpr (INT4) {
+            // word p2 holds steps 2 p2 (bytes 0, 1) and 2 p2 + 1 (bytes 2, 3)
+            float sa[2][2], sb[2][2];  // [u][h]: the scale of K 16c + 4s and 16c + 4s + 2
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                if (tile_groups) {
+                  sa[u][h] = sb[u][h] = s_tile[f][h];
+                } else {
+                  const int k = (t_lo + i) * kTcKT + 16 * c + 4 * (2 * p2 + u);
+                  sa[u][h] = scale_at(cb + 16 * f + 8 * h, k);
+                  sb[u][h] = scale_at(cb + 16 * f + 8 * h, k + 2);
+                }
+              }
+            const uint32_t w0 = w[f][0][p2], w1 = w[f][1][p2];
+            const uint32_t l0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
+            const uint32_t l1 = w1 & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
+            af[0][f][0] = deq4<0>(l0, h0, sa[0][0]);
+            af[0][f][1] = deq4<0>(l1, h1, sa[0][1]);
+            af[0][f][2] = deq4<1>(l0, h0, sb[0][0]);
+            af[0][f][3] = deq4<1>(l1, h1, sb[0][1]);
+            af[1][f][0] = deq4<2>(l0, h0, sa[1][0]);
+            af[1][f][1] = deq4<2>(l1, h1, sa[1][1]);
+            af[1][f][2] = deq4<3>(l0, h0, sb[1][0]);
+            af[1][f][3] = deq4<3>(l1, h1, sb[1][1]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {  // word s holds step s
+              const uint32_t w0 = w[f][0][2 * p2 + u], w1 = w[f][1][2 * p2 + u];
+              af[u][f][0] = deq8_pair<0>(w0);
+              af[u][f][1] = deq8_pair<0>(w1);
+              af[u][f][2] = deq8_pair<2>(w0);
+              af[u][f][3] = deq8_pair<2>(w1);
+            }
+          }
+        }
+        // B: x of token 8j + g at K 16c + 8 p2 .. + 7, in one 16-byte load:
+        // words 0, 1 for step 2 p2 and 2, 3 for step 2 p2 + 1
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              wtile + Sh::kWBytes + swz(wt * TT + 8 * j + g, 32 * c + 16 * p2));
+#pragma unroll
+          for (int f = 0; f < FR; ++f) {
+            mma_bf16(acc[f][j], af[0][f], v.x, v.y);
+            mma_bf16(acc[f][j], af[1][f], v.z, v.w);
+          }
+        }
+      }
+    } else {
+      const uint32_t xtile = base + st * Sh::kStageBytes + Sh::kWBytes;
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
       if constexpr (INT4) {
-        float sa[4], sb[4];
-        if (a.tma) {
+        if (a.tma) {  // G % 64 == 0: the whole tile is in one group
+          const float4 v =
+              *reinterpret_cast<const float4*>(sp + Sh::kWBytes + Sh::kXBytes + 4 * cb);
+          s4[0] = v.x, s4[1] = v.y, s4[2] = v.z, s4[3] = v.w;
+        }
+      }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sa[j] = sb[j] = s4[j];
+      for (int s = 0; s < kTcKT / 16; ++s) {
+        // A: this lane's weights at elements 2c, 2c + 1 (registers 0, 1) and
+        // 2c + 8, 2c + 9 (registers 2, 3) of the step, for columns 4g + 2f
+        // (even registers) and 4g + 2f + 1 (odd)
+        uint32_t af[2][4];
+        if constexpr (INT4) {
+          float sa[4], sb[4];
+          if (a.tma) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) sa[j] = sb[j] = s4[j];
+          } else {
+            const int k = (t_lo + i) * kTcKT + 16 * s + 2 * c;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              sa[j] = scale_at(cb + j, k);
+              sb[j] = scale_at(cb + j, k + 8);
+            }
+          }
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wtile + swz(8 * s + c, cb));
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wtile + swz(8 * s + c + 4, cb));
+          const uint32_t l0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
+          const uint32_t l1 = w1 & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
+          af[0][0] = deq4<0>(l0, h0, sa[0]);
+          af[0][1] = deq4<1>(l0, h0, sa[1]);
+          af[0][2] = deq4<0>(l1, h1, sb[0]);
+          af[0][3] = deq4<1>(l1, h1, sb[1]);
+          af[1][0] = deq4<2>(l0, h0, sa[2]);
+          af[1][1] = deq4<3>(l0, h0, sa[3]);
+          af[1][2] = deq4<2>(l1, h1, sb[2]);
+          af[1][3] = deq4<3>(l1, h1, sb[3]);
         } else {
-          const int k = (t_lo + i) * kTcKT + 16 * s + 2 * c;
-          scales_at(k, sa);
-          scales_at(k + 8, sb);
+          uint32_t w[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            w[j] = *reinterpret_cast<const uint32_t*>(
+                       wtile + swz(16 * s + 2 * c + (j & 1) + 8 * (j >> 1), cb)) ^
+                   0x80808080u;
+          af[0][0] = deq8<0>(w[0], w[1]);
+          af[0][1] = deq8<1>(w[0], w[1]);
+          af[0][2] = deq8<0>(w[2], w[3]);
+          af[0][3] = deq8<1>(w[2], w[3]);
+          af[1][0] = deq8<2>(w[0], w[1]);
+          af[1][1] = deq8<3>(w[0], w[1]);
+          af[1][2] = deq8<2>(w[2], w[3]);
+          af[1][3] = deq8<3>(w[2], w[3]);
         }
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wtile + swz(8 * s + c, cb));
-        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wtile + swz(8 * s + c + 4, cb));
-        const uint32_t l0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
-        const uint32_t l1 = w1 & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
-        af[0][0] = deq4<0>(l0, h0, sa[0]);
-        af[0][1] = deq4<1>(l0, h0, sa[1]);
-        af[0][2] = deq4<0>(l1, h1, sb[0]);
-        af[0][3] = deq4<1>(l1, h1, sb[1]);
-        af[1][0] = deq4<2>(l0, h0, sa[2]);
-        af[1][1] = deq4<3>(l0, h0, sa[3]);
-        af[1][2] = deq4<2>(l1, h1, sb[2]);
-        af[1][3] = deq4<3>(l1, h1, sb[3]);
-      } else {
-        uint32_t w[4];
+        // B: x of token fragment j, elements 16s + 2c, +1 and 16s + 2c + 8, +9
+        // of token 8j + g; ldmatrix row (lane & 7) of matrix (lane >> 3)
+        uint32_t bf[NI][2];
+        const int krow = 2 * (16 * s + 8 * ((lane >> 3) & 1));  // byte in the x row
+        if constexpr (NI == 1) {
+          ldsm_x2(xtile + swz(wt * TT + (lane & 7), krow), bf[0][0], bf[0][1]);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          w[j] = *reinterpret_cast<const uint32_t*>(
-                     wtile + swz(16 * s + 2 * c + (j & 1) + 8 * (j >> 1), cb)) ^
-                 0x80808080u;
-        af[0][0] = deq8<0>(w[0], w[1]);
-        af[0][1] = deq8<1>(w[0], w[1]);
-        af[0][2] = deq8<0>(w[2], w[3]);
-        af[0][3] = deq8<1>(w[2], w[3]);
-        af[1][0] = deq8<2>(w[0], w[1]);
-        af[1][1] = deq8<3>(w[0], w[1]);
-        af[1][2] = deq8<2>(w[2], w[3]);
-        af[1][3] = deq8<3>(w[2], w[3]);
-      }
-      // B: x of token fragment j, elements 16s + 2c, +1 and 16s + 2c + 8, +9
-      // of token 8j + g; ldmatrix row (lane & 7) of matrix (lane >> 3)
-      uint32_t bf[NI][2];
-      const int krow = 2 * (16 * s + 8 * ((lane >> 3) & 1));  // byte in the x row
-      if constexpr (NI == 1) {
-        ldsm_x2(xtile + swz(wt * TT + (lane & 7), krow), bf[0][0], bf[0][1]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < NI; j += 2) {
-          uint32_t r[4];
-          ldsm_x4(xtile + swz(wt * TT + 8 * (j + (lane >> 4)) + (lane & 7), krow), r);
-          bf[j][0] = r[0], bf[j][1] = r[1], bf[j + 1][0] = r[2], bf[j + 1][1] = r[3];
+          for (int j = 0; j < NI; j += 2) {
+            uint32_t r[4];
+            ldsm_x4(xtile + swz(wt * TT + 8 * (j + (lane >> 4)) + (lane & 7), krow), r);
+            bf[j][0] = r[0], bf[j][1] = r[1], bf[j + 1][0] = r[2], bf[j + 1][1] = r[3];
+          }
         }
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma_bf16(acc[f][j], af[f], bf[j][0], bf[j][1]);
       }
-#pragma unroll
-      for (int f = 0; f < 2; ++f)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma_bf16(acc[f][j], af[f], bf[j][0], bf[j][1]);
     }
     __syncthreads();  // every warp is done with the stage
     if (a.tma && tid == 0 && i + STAGES < nt) issue(i + STAGES);
   }
 
-  // the slice's partial sums into this block's shared memory: token row t,
-  // columns cb .. cb + 3 (the ring is free: every copy has landed and been read)
+  // the slice's partial sums into this block's shared memory: token rows t
+  // and t + 1, this lane's four columns (the ring is free: every copy has
+  // landed and been read)
   float* red = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int j = 0; j < NI; ++j) {
     const int t = wt * TT + 8 * j + 2 * c;
-    *reinterpret_cast<float4*>(red + t * kTcRedStride + cb) =
-        make_float4(acc[0][j][0], acc[0][j][2], acc[1][j][0], acc[1][j][2]);
-    *reinterpret_cast<float4*>(red + (t + 1) * kTcRedStride + cb) =
-        make_float4(acc[0][j][1], acc[0][j][3], acc[1][j][1], acc[1][j][3]);
+    if constexpr (NK) {
+#pragma unroll
+      for (int f = 0; f < FR; ++f)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = cb + 16 * f + 8 * h;
+          red[t * kTcRedStride + col] = acc[f][j][2 * h];
+          red[(t + 1) * kTcRedStride + col] = acc[f][j][2 * h + 1];
+        }
+    } else {
+      *reinterpret_cast<float4*>(red + t * kTcRedStride + cb) =
+          make_float4(acc[0][j][0], acc[0][j][2], acc[1][j][0], acc[1][j][2]);
+      *reinterpret_cast<float4*>(red + (t + 1) * kTcRedStride + cb) =
+          make_float4(acc[0][j][1], acc[0][j][3], acc[1][j][1], acc[1][j][3]);
+    }
   }
   cluster.sync();
 
@@ -752,28 +888,24 @@ __global__ void __launch_bounds__(128 * WT, WT == 1 ? 4 : 2)
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, bool INT4, int BM>
+template <bool INT4, int BM>
 cudaError_t launch(int layout, const Args& a, cudaStream_t stream) {
   const dim3 grid((a.N + kBN - 1) / kBN, (a.M + BM - 1) / BM);
-  if (layout == 0) {
-    if constexpr (std::is_same<T, float>::value)
-      qmm_kn_kernel<T, INT4, BM><<<grid, kThreads, 0, stream>>>(a);
-    else
-      return cudaErrorInvalidValue;  // bf16 [K, N] products run on the tensor cores
-  } else {
-    qmm_nk_kernel<T, INT4, BM><<<grid, kThreads, 0, stream>>>(a);
-  }
+  if (layout == 0)
+    qmm_kn_kernel<INT4, BM><<<grid, kThreads, 0, stream>>>(a);
+  else
+    qmm_nk_kernel<INT4, BM><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool INT4>
+template <bool INT4>
 cudaError_t launch_bm(int layout, const Args& a, cudaStream_t stream) {
   // the tile height changes which rows share a weight read, never the
   // order of any output's reduction
-  if (a.M <= 1) return launch<T, INT4, 1>(layout, a, stream);
-  if (a.M <= 2) return launch<T, INT4, 2>(layout, a, stream);
-  if (a.M <= 4) return launch<T, INT4, 4>(layout, a, stream);
-  return launch<T, INT4, 8>(layout, a, stream);
+  if (a.M <= 1) return launch<INT4, 1>(layout, a, stream);
+  if (a.M <= 2) return launch<INT4, 2>(layout, a, stream);
+  if (a.M <= 4) return launch<INT4, 4>(layout, a, stream);
+  return launch<INT4, 8>(layout, a, stream);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -815,10 +947,10 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <bool INT4, int WT, int TT, int STAGES>
+template <bool NK, bool INT4, int WT, int TT, int STAGES, int FR = 2>
 cudaError_t launch_tc(const TcArgs& a0, cudaStream_t stream) {
-  using Sh = TcShape<INT4, WT, TT, STAGES>;
-  auto kernel = qmm_kn_tc_kernel<INT4, WT, TT, STAGES>;
+  using Sh = TcShape<NK, INT4, WT, TT, STAGES, FR>;
+  auto kernel = qmm_tc_kernel<NK, INT4, WT, TT, STAGES, FR>;
   // per instantiation and device: the shared-memory limit, set once (two
   // threads may both set it; that is harmless)
   static std::atomic<bool> ready[kMaxDevices];
@@ -832,22 +964,31 @@ cudaError_t launch_tc(const TcArgs& a0, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     ready[dev].store(true, std::memory_order_release);
   }
-  // TMA needs 16-byte aligned bases and row strides, and (int4) one scale
-  // group per tile; otherwise the blocks load the same tiles themselves
+  // TMA needs 16-byte aligned bases and row strides and, for [K, N] int4,
+  // one scale group per tile; otherwise the blocks load the same tiles
+  // themselves
   TcArgs a = a0;
-  a.tma = a.N % 16 == 0 && aligned16(a.q) && aligned16(a.x) &&
-          (a.M == 1 || a.x_stride % 8 == 0) &&
-          (!INT4 || (a.group % kTcKT == 0 && aligned16(a.scale)));
+  const int kp = INT4 ? a.K / 2 : a.K;  // packed bytes of K
+  const bool x_ok = aligned16(a.x) && (a.M == 1 || a.x_stride % 8 == 0);
+  if (NK)
+    a.tma = x_ok && aligned16(a.q) && kp % 16 == 0;
+  else
+    a.tma = x_ok && aligned16(a.q) && a.N % 16 == 0 &&
+            (!INT4 || (a.group % kTcKT == 0 && aligned16(a.scale)));
   TcMaps maps;
   memset(&maps, 0, sizeof(maps));
   if (a.tma) {
-    const int kp = INT4 ? a.K / 2 : a.K;
-    if (!tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.q, kp, a.N, a.N, kTcBN,
-                    Sh::kWRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+    const bool w_ok =
+        NK ? tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.q, a.N, kp, kp, Sh::kKp,
+                        kTcBN, CU_TENSOR_MAP_SWIZZLE_NONE)
+           : tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.q, kp, a.N, a.N, kTcBN,
+                        Sh::kKp, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!w_ok ||
         !tensor_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.M, a.K, a.x_stride * 2,
                     kTcKT, Sh::BT, CU_TENSOR_MAP_SWIZZLE_128B) ||
-        (INT4 && !tensor_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.scale, a.K / a.group,
-                             a.N, (int64_t)a.N * 4, kTcBN, 1, CU_TENSOR_MAP_SWIZZLE_NONE)))
+        (INT4 && !NK &&
+         !tensor_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.scale, a.K / a.group, a.N,
+                     (int64_t)a.N * 4, kTcBN, 1, CU_TENSOR_MAP_SWIZZLE_NONE)))
       return cudaErrorInvalidValue;
   }
   const int S = tc_slices(a.K);
@@ -868,12 +1009,16 @@ cudaError_t launch_tc(const TcArgs& a0, cudaStream_t stream) {
 }
 
 // The token tile (8, 32 or 128 rows a block) only picks which rows share a
-// weight tile; every row's sums run in the same order at every M.
-template <bool INT4>
+// weight tile, and the fragments per warp which warp computes a column;
+// every row's sums run in the same order at every M.
+template <bool NK, bool INT4>
 cudaError_t launch_tc_rows(const TcArgs& a, cudaStream_t stream) {
-  if (a.M <= 8) return launch_tc<INT4, 1, 8, 6>(a, stream);
-  if (a.M <= 32) return launch_tc<INT4, 1, 32, 6>(a, stream);
-  return launch_tc<INT4, 2, 64, 4>(a, stream);
+  // fragments per warp for a few tokens: one for [N, K] int4, whose
+  // dequantization bounds the decode step (two for int8, which is faster)
+  constexpr int kFew = NK && INT4 ? 1 : 2;
+  if (a.M <= 8) return launch_tc<NK, INT4, 1, 8, 6, kFew>(a, stream);
+  if (a.M <= 32) return launch_tc<NK, INT4, 1, 32, 6, kFew>(a, stream);
+  return launch_tc<NK, INT4, 2, 64, 4>(a, stream);
 }
 
 }  // namespace
@@ -881,8 +1026,8 @@ cudaError_t launch_tc_rows(const TcArgs& a, cudaStream_t stream) {
 // layout: 0 = weights [K, N] (K5, K6), 1 = weights [N, K] (K4, K7).
 // dtype: 0 = float32, 1 = bfloat16 (x and out). bits: 8 (q int8, scale [N])
 // or 4 (q packed uint8, scale [K/G, N] or [N, K/G], group = G). out is a
-// contiguous [M, N]. [K, N] products in bfloat16 run on the tensor cores,
-// every other on the CUDA cores. Returns a cudaError_t (0 = launched).
+// contiguous [M, N]. bfloat16 products run on the tensor cores, float32
+// ones on the CUDA cores. Returns a cudaError_t (0 = launched).
 extern "C" int quant_matmul_launch(int layout, int dtype, int bits,
                                    const void* x, int64_t x_stride,
                                    const void* q, const void* scale, void* out,
@@ -894,7 +1039,7 @@ extern "C" int quant_matmul_launch(int layout, int dtype, int bits,
     return (int)cudaErrorInvalidValue;
   if (bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout == 0 && dtype == 1) {
+  if (dtype == 1) {
     TcArgs t;
     t.x = x;
     t.q = static_cast<const uint8_t*>(q);
@@ -906,27 +1051,29 @@ extern "C" int quant_matmul_launch(int layout, int dtype, int bits,
     t.N = N;
     t.group = group;
     t.tma = 0;
-    return (int)(bits == 4 ? launch_tc_rows<true>(t, st) : launch_tc_rows<false>(t, st));
+    if (layout == 0)
+      return (int)(bits == 4 ? launch_tc_rows<false, true>(t, st)
+                             : launch_tc_rows<false, false>(t, st));
+    return (int)(bits == 4 ? launch_tc_rows<true, true>(t, st)
+                           : launch_tc_rows<true, false>(t, st));
   }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a;
-  a.x = x;
+  a.x = static_cast<const float*>(x);
   a.q = static_cast<const uint8_t*>(q);
   a.scale = static_cast<const float*>(scale);
-  a.out = out;
+  a.out = static_cast<float*>(out);
   a.x_stride = x_stride;
   a.M = M;
   a.K = K;
   a.N = N;
   a.group = group;
   a.vec = vec;
-  if (dtype == 0 && bits == 8) return (int)launch_bm<float, false>(layout, a, st);
-  if (dtype == 0 && bits == 4) return (int)launch_bm<float, true>(layout, a, st);
-  if (dtype == 1 && bits == 8) return (int)launch_bm<__nv_bfloat16, false>(layout, a, st);
-  if (dtype == 1 && bits == 4) return (int)launch_bm<__nv_bfloat16, true>(layout, a, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)(bits == 4 ? launch_bm<true>(layout, a, st) : launch_bm<false>(layout, a, st));
 }
 
-// The K split of the tensor-core route: elements per tile and slices for
-// a K (the constants the CPU tests' model of the split must use).
-extern "C" int quant_matmul_kn_tile() { return kTcKT; }
-extern "C" int quant_matmul_kn_slices(int K) { return K > 0 ? tc_slices(K) : 0; }
+// The K split of the tensor-core route (both layouts): elements per tile
+// and slices for a K (the constants the CPU tests' model of the split must
+// use).
+extern "C" int quant_matmul_tc_tile() { return kTcKT; }
+extern "C" int quant_matmul_tc_slices(int K) { return K > 0 ? tc_slices(K) : 0; }

@@ -23,11 +23,11 @@ A wrapper launches its kernel for CUDA tensors, at every M, and raises on
 anything the kernel does not take; only CPU tensors go to its ``_plain``
 version. ``quantize_weights`` is the JAX module's plain quantizer.
 
-K5 and K6 in bfloat16 run on the tensor cores and split K into
-``kn_slices(K)`` slices of whole ``KN_TILE``-element tiles, whose fp32
-partial sums are added in slice order (the source's header); their
-``tensor_core_launches`` counts those launches. In float32 they, and K4/K7
-at every dtype, run on the CUDA cores.
+In bfloat16 all four run on the tensor cores and split K into
+``tc_slices(K)`` slices of whole ``TC_TILE``-element tiles, whose fp32
+partial sums are added in slice order (the source's header); each
+wrapper's ``tensor_core_launches`` counts those launches. In float32 they
+run on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -42,16 +42,17 @@ from layerskip_tpu_torch.ops.linear import unpack_int4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KN, _NK = 0, 1  # weight layouts of the C interface: [K, N] and [N, K]
-KN_TILE = 64  # K elements per tile of the tensor-core route (kTcKT in csrc/quant_matmul.cu)
-KN_MAX_SLICES = 8  # K slices of one output tile, at most (kTcMaxSlices)
-KN_MIN_TILES = 4  # tiles per slice, at least, once K splits (kTcMinTiles)
+TC_TILE = 64  # K elements per tile of the tensor-core route (kTcKT in csrc/quant_matmul.cu)
+TC_MAX_SLICES = 8  # K slices of one output tile, at most (kTcMaxSlices)
+TC_MIN_TILES = 4  # tiles per slice, at least, once K splits (kTcMinTiles)
 
 
-def kn_slices(k: int) -> int:
-    """K slices of a bf16 [K, N] product on the tensor cores (``tc_slices``
-    in csrc/quant_matmul.cu): a function of K alone. Slice s of S takes
-    tiles [s * T // S, (s + 1) * T // S) of the T = ceil(K / KN_TILE)."""
-    return max(1, min(KN_MAX_SLICES, -(-k // KN_TILE) // KN_MIN_TILES))
+def tc_slices(k: int) -> int:
+    """K slices of a bf16 product on the tensor cores (``tc_slices`` in
+    csrc/quant_matmul.cu), either weight layout: a function of K alone.
+    Slice s of S takes tiles [s * T // S, (s + 1) * T // S) of the
+    T = ceil(K / TC_TILE)."""
+    return max(1, min(TC_MAX_SLICES, -(-k // TC_TILE) // TC_MIN_TILES))
 
 
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,15 +148,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def library_kn_geometry(k: int) -> Tuple[int, int]:
+def library_tc_geometry(k: int) -> Tuple[int, int]:
     """(elements per tile, slices) of the built library's tensor-core route
-    for a K: what ``KN_TILE`` and ``kn_slices`` must equal."""
+    for a K: what ``TC_TILE`` and ``tc_slices`` must equal."""
     lib = _library()
-    lib.quant_matmul_kn_slices.argtypes = [ctypes.c_int]
-    return lib.quant_matmul_kn_tile(), lib.quant_matmul_kn_slices(k)
+    lib.quant_matmul_tc_slices.argtypes = [ctypes.c_int]
+    return lib.quant_matmul_tc_tile(), lib.quant_matmul_tc_slices(k)
 
 
-def _launch(layout, bits, x, q, scale, n, group, vec_bytes):
+def _launch(kernel, layout, bits, x, q, scale, n, group, vec_bytes):
+    """Launch the product for ``kernel`` (its wrapper, whose counts go up by
+    one per launch) into a new [M, N] output."""
     launch = _library().quant_matmul_launch
     m, k = x.shape
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -173,6 +176,9 @@ def _launch(layout, bits, x, q, scale, n, group, vec_bytes):
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: cudaError {rc}")
+    kernel.launches += 1
+    if x.dtype == torch.bfloat16:
+        kernel.tensor_core_launches += 1
     return out
 
 
@@ -182,11 +188,7 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> tor
         return quant_matmul_plain(x, w_q, scale)
     k, n = x.shape[-1], w_q.shape[-1]
     _check("quant_matmul", x, w_q, scale, torch.int8, (k, n), (n,), 0)
-    out = _launch(_KN, 8, x, w_q, scale, n, 0, 4)
-    quant_matmul.launches += 1
-    if x.dtype == torch.bfloat16:
-        quant_matmul.tensor_core_launches += 1
-    return out
+    return _launch(quant_matmul, _KN, 8, x, w_q, scale, n, 0, 4)
 
 
 def quant_matmul_t(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -195,9 +197,7 @@ def quant_matmul_t(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> t
         return quant_matmul_t_plain(x, w_q, scale)
     k, n = x.shape[-1], w_q.shape[0]
     _check("quant_matmul_t", x, w_q, scale, torch.int8, (n, k), (n,), 0)
-    out = _launch(_NK, 8, x, w_q, scale, n, 0, 16)
-    quant_matmul_t.launches += 1
-    return out
+    return _launch(quant_matmul_t, _NK, 8, x, w_q, scale, n, 0, 16)
 
 
 def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor,
@@ -208,11 +208,7 @@ def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor,
     k, n, g = x.shape[-1], q_packed.shape[-1], int(group)
     _check("int4_matmul", x, q_packed, scale, torch.uint8, (k // 2, n),
            (k // g if g else -1, n), g or -1)
-    out = _launch(_KN, 4, x, q_packed, scale, n, g, 4)
-    int4_matmul.launches += 1
-    if x.dtype == torch.bfloat16:
-        int4_matmul.tensor_core_launches += 1
-    return out
+    return _launch(int4_matmul, _KN, 4, x, q_packed, scale, n, g, 4)
 
 
 def int4_matmul_t(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor,
@@ -223,13 +219,10 @@ def int4_matmul_t(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor,
     k, n, g = x.shape[-1], q_packed.shape[0], int(group)
     _check("int4_matmul_t", x, q_packed, scale, torch.uint8, (n, k // 2),
            (n, k // g if g else -1), g or -1)
-    out = _launch(_NK, 4, x, q_packed, scale, n, g, 16)
-    int4_matmul_t.launches += 1
-    return out
+    return _launch(int4_matmul_t, _NK, 4, x, q_packed, scale, n, g, 16)
 
 
 for _fn in (quant_matmul, quant_matmul_t, int4_matmul, int4_matmul_t):
     _fn.launches = 0
-for _fn in (quant_matmul, int4_matmul):
     _fn.tensor_core_launches = 0  # of its launches, those on the tensor cores (bf16)
 

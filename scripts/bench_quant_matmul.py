@@ -1,21 +1,24 @@
-"""Time K5/K6 (the [K, N] int8/int4 products) on the card against another build of their source.
+"""Time K4-K7 (the int8/int4 products) on the card against other builds of their source.
 
     python3 scripts/bench_quant_matmul.py [--baseline [LABEL=]DIR/quant_matmul.cu ...]
-                                          [--m 1,7,256] [--ttft]
+                                          [--kernels quant_matmul_t,...] [--m 1,7,256]
+                                          [--ttft]
 
 Builds ``layerskip_tpu_torch/csrc/quant_matmul.cu`` and, with
 ``--baseline`` (repeatable), other sources with the same C interface (for
 example the parent commit's, unpacked with ``git archive`` into a
 git-ignored directory), each with nvcc into ``build/kernels/``, all at once.
-Then, for K5 (int8) and K6 (int4, G 128) on the 7B layer shapes wo
-[4096, 4096], w_gate [4096, 11008] and w_down [11008, 4096] at each M, in
-bf16 with N(0, 0.02) weights, it checks each build against the plain
-version (one bf16 ulp of the largest output, ``chip_smoke.py``'s
-tolerance) and times it in turns (baselines, current, current, baselines
-in reverse; twice) with L2 flushed before each call
-(``chip_smoke.time_cold_ms``), beside one bf16 ``torch.matmul`` on the
-weight dequantized ahead of time and the card's bound
-(``chip_smoke.quant_bound``). With ``--ttft`` it also builds the random
+Then, for each kernel of ``--kernels`` (default all four) at each M, in
+bf16 with N(0, 0.02) weights: K5 (int8) and K6 (int4, G 128) on the 7B
+[K, N] layer shapes wo [4096, 4096], w_gate [4096, 11008] and w_down
+[11008, 4096], K4 (int8) and K7 (int4, G 128) on the [N, K] shapes of the
+7B wq [4096, 4096] and the Llama-3.2-1B wk [512, 2048]. It checks each
+build against the plain version (one bf16 ulp of the largest output,
+``chip_smoke.py``'s tolerance) and times it in turns (baselines, current,
+current, baselines in reverse; twice) with L2 flushed before each call
+(``chip_smoke.time_cold_ms``), beside one bf16 ``torch.matmul`` (or
+``F.linear`` for [N, K]) on the weight dequantized ahead of time and the
+card's bound (``chip_smoke.quant_bound``). With ``--ttft`` it also builds the random
 Llama-2-7B of ``chip_smoke.py`` phase 5, quantizes it to int8 and to int4,
 and times ``generate(max_steps=1)`` of a 200- and a 2000-token prompt with
 each build in the same turns (wall ms after a warm-up). Prints the card's
@@ -44,7 +47,7 @@ import chip_smoke  # noqa: E402
 from layerskip_tpu_torch.ops.cuda import build  # noqa: E402
 
 ROUNDS = 2
-KERNELS = (("quant_matmul", 8), ("int4_matmul", 4))
+KERNELS = ("quant_matmul_t", "quant_matmul", "int4_matmul", "int4_matmul_t")
 
 
 def compile_sources(sources: dict) -> dict:
@@ -62,22 +65,27 @@ def compile_sources(sources: dict) -> dict:
     return {label: ctypes.CDLL(str(out)) for label, (out, _) in procs.items()}
 
 
-def bench_products(libs, order, ms_list):
+def bench_products(libs, order, kernels, ms_list):
+    import torch.nn.functional as F
+
     from layerskip_tpu_torch.ops.cuda import quant_matmul as qmm
     from layerskip_tpu_torch.quant import quantize_tensor
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     summary, ok = {}, True
-    for kern, bits in KERNELS:
+    for kern in kernels:
         fn, plain = getattr(qmm, kern), getattr(qmm, f"{kern}_plain")
-        for layer, k, n in chip_smoke.KN_LAYERS:
-            w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
-            qt = quantize_tensor(w, bits=bits, group=128 if bits == 4 else 0)
+        bits, k_last = 4 if kern.startswith("int4") else 8, kern.endswith("_t")
+        layers = (chip_smoke.NK_LAYERS if k_last else
+                  [(f"7b_{layer}", k, n) for layer, k, n in chip_smoke.KN_LAYERS])
+        for layer, k, n in layers:
+            w = torch.randn((n, k) if k_last else (k, n), generator=gen, device="cuda") * 0.02
+            qt = quantize_tensor(w, k_last=k_last, bits=bits, group=128 if bits == 4 else 0)
             del w
             w_deq = qt.dequantize(torch.bfloat16)
             kw = dict(group=qt.group) if bits == 4 else {}
             for m in ms_list:
-                name = f"{kern}_7b_{layer}_m{m}"
+                name = f"{kern}_{layer}_m{m}"
                 x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
                 want = plain(x, qt.q, qt.scale, **kw).float()
                 tol = 2.0 ** -7 * want.abs().max().item()
@@ -94,7 +102,8 @@ def bench_products(libs, order, ms_list):
                         ms = chip_smoke.time_cold_ms(call)
                         row["ms"][label].append(ms)
                         print(f"[bench] {name} round {rnd} {label}: {ms:.4f} ms", flush=True)
-                row["library_ms"] = chip_smoke.time_cold_ms(lambda: torch.matmul(x, w_deq))
+                lib = F.linear if k_last else torch.matmul
+                row["library_ms"] = chip_smoke.time_cold_ms(lambda: lib(x, w_deq))
                 row["bound_ms"], row["bound_by"] = chip_smoke.quant_bound(
                     m, k, n, bits, torch.bfloat16)
                 row["tol"] = tol
@@ -150,6 +159,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="append", default=[],
                     help="[LABEL=]PATH of another quant_matmul.cu with the same C interface")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated wrappers to time (default: all four)")
     ap.add_argument("--m", default="1,7,256", help="comma-separated M (rows of x)")
     ap.add_argument("--ttft", action="store_true",
                     help="also time the first token of the int8 and int4 7B bases per build")
@@ -168,7 +179,8 @@ def main() -> int:
     libs = compile_sources(sources)
     order = others + ["current", "current"] + others[::-1]
 
-    ok, products = bench_products(libs, order, [int(m) for m in args.m.split(",")])
+    ok, products = bench_products(libs, order, args.kernels.split(","),
+                                  [int(m) for m in args.m.split(",")])
     ttft = bench_ttft(libs, order) if args.ttft else {}
     build._LIBS.pop("quant_matmul", None)
     print(json.dumps({"card": card, "ok": ok, "cases": products, "ttft": ttft}))

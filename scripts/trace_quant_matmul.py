@@ -1,12 +1,15 @@
-"""Per-block phase times of K5/K6's tensor-core route, from clock stamps in an instrumented build.
+"""Per-block phase times of K4-K7's tensor-core route, from clock stamps in an instrumented build.
 
-    python3 scripts/trace_quant_matmul.py [--m 1,256] [--layers wo,wgate,wdown]
+    python3 scripts/trace_quant_matmul.py [--m 1,256] [--kernels quant_matmul_t,...]
+                                          [--layers 7b_wq,wo,...]
 
 Copies ``layerskip_tpu_torch/csrc/quant_matmul.cu`` into ``build/kernels/``
 with ``clock64`` and ``%globaltimer`` stamps added at fixed points of
-``qmm_kn_tc_kernel`` (each point found by its source line; the script stops
-if one is missing), builds it with nvcc, and runs K5 (int8) and K6 (int4,
-G 128) in bf16 on the 7B layer shapes of ``chip_smoke.py`` at each M, once
+``qmm_tc_kernel`` (each point found by its source line; the script stops
+if one is missing; both weight layouts share them), builds it with nvcc,
+and runs each kernel of ``--kernels`` (default all four; int4 at G 128) in
+bf16 on the layer shapes of ``chip_smoke.py`` (``NK_LAYERS`` for K4/K7,
+``KN_LAYERS`` for K5/K6; ``--layers`` picks among them) at each M, once
 warm and three times with L2 flushed (``chip_smoke.time_cold_ms``'s
 flush). Thread 0 of every block records when the block started and ended
 on the card's clock, and its cycles in each phase: init (barriers, first
@@ -44,19 +47,17 @@ STAMPS = (
     ("namespace cg = cooperative_groups;\n",
      "namespace cg = cooperative_groups;\n__device__ long long* g_trace = nullptr;\n"
      "#define QMM_CLK(i) if (threadIdx.x == 0) tr[i] = clock64();\n"),
-    ("  const int cb = wn * 32 + 4 * g;  // this lane's first column in the block\n",
-     "  const int cb = wn * 32 + 4 * g;  // this lane's first column in the block\n"
+    ("  const int cb = NK ? wn * 16 * FR + g : wn * 32 + 4 * g;\n",
+     "  const int cb = NK ? wn * 16 * FR + g : wn * 32 + 4 * g;\n"
      "  long long tr[7] = {0, 0, 0, 0, 0, 0, 0};\n  unsigned long long g0, g1;\n"
      "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g0));\n  QMM_CLK(0)\n"),
-    ("  float acc[2][NI][4];\n", "  QMM_CLK(1)\n  float acc[2][NI][4];\n"),
+    ("  float acc[FR][NI][4];\n", "  QMM_CLK(1)\n  float acc[FR][NI][4];\n"),
     ("    const unsigned char* wtile = sp;\n",
      "    if (i == 0) { QMM_CLK(2) }\n    const unsigned char* wtile = sp;\n"),
     ("  float* red = reinterpret_cast<float*>(ring);\n",
      "  QMM_CLK(3)\n  float* red = reinterpret_cast<float*>(ring);\n"),
-    ("        make_float4(acc[0][j][1], acc[0][j][3], acc[1][j][1], acc[1][j][3]);\n  }\n"
-     "  cluster.sync();\n",
-     "        make_float4(acc[0][j][1], acc[0][j][3], acc[1][j][1], acc[1][j][3]);\n  }\n"
-     "  cluster.sync();\n  QMM_CLK(4)\n"),
+    ("  cluster.sync();\n\n  // rank r finishes its share",
+     "  cluster.sync();\n  QMM_CLK(4)\n\n  // rank r finishes its share"),
     ("  cluster.sync();  // no block leaves while another still reads its shared memory\n}\n",
      "  QMM_CLK(5)\n"
      "  cluster.sync();  // no block leaves while another still reads its shared memory\n"
@@ -108,7 +109,8 @@ def summarize(rec: np.ndarray) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--m", default="1,256", help="comma-separated M (rows of x)")
-    ap.add_argument("--layers", default="wo,wgate,wdown")
+    ap.add_argument("--kernels", default="quant_matmul_t,quant_matmul,int4_matmul,int4_matmul_t")
+    ap.add_argument("--layers", default=None, help="comma-separated layer names (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_quant_matmul: no CUDA device", file=sys.stderr)
@@ -121,18 +123,20 @@ def main() -> int:
     build._LIBS["quant_matmul"] = lib
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    layers = {name: (k, n) for name, k, n in chip_smoke.KN_LAYERS}
-    for kern, bits in (("quant_matmul", 8), ("int4_matmul", 4)):
+    for kern in args.kernels.split(","):
         fn = getattr(qmm, kern)
-        for layer in args.layers.split(","):
-            k, n = layers[layer]
-            w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
-            qt = quantize_tensor(w, bits=bits, group=128 if bits == 4 else 0)
+        bits, k_last = 4 if kern.startswith("int4") else 8, kern.endswith("_t")
+        layers = chip_smoke.NK_LAYERS if k_last else chip_smoke.KN_LAYERS
+        for layer, k, n in layers:
+            if args.layers and layer not in args.layers.split(","):
+                continue
+            w = torch.randn((n, k) if k_last else (k, n), generator=gen, device="cuda") * 0.02
+            qt = quantize_tensor(w, k_last=k_last, bits=bits, group=128 if bits == 4 else 0)
             kw = dict(group=qt.group) if bits == 4 else {}
             for m in (int(v) for v in args.m.split(",")):
                 x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
                 bt = 8 if m <= 8 else 32 if m <= 32 else 128
-                blocks = -(-n // 128) * qmm.kn_slices(k) * -(-m // bt)
+                blocks = -(-n // 128) * qmm.tc_slices(k) * -(-m // bt)
                 buf = torch.zeros(blocks, SLOTS, dtype=torch.int64, device="cuda")
                 if lib.quant_matmul_set_trace(buf.data_ptr()) != 0:
                     raise SystemExit("trace_quant_matmul: could not set the trace buffer")
@@ -143,7 +147,7 @@ def main() -> int:
                     buf.zero_()
                     fn(x, qt.q, qt.scale, **kw)
                     torch.cuda.synchronize()
-                    line = dict(case=f"{kern}_7b_{layer}_m{m}", rep=rep, cold=cold,
+                    line = dict(case=f"{kern}_{layer}_m{m}", rep=rep, cold=cold,
                                 **summarize(buf.cpu().numpy()))
                     print(json.dumps(line), flush=True)
             del qt, w

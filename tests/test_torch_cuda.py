@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: against their plain versions,
 through the engine, and the wrappers' refusals; the tensor-core (bf16)
-routes of K1 and K5/K6, and K2/K3, also for bit-for-bit determinism and
+routes of K1 and K4-K7, and K2/K3, also for bit-for-bit determinism and
 invariance to the batch, the other rows and the keys no query sees. Every
 test here needs a CUDA device and nvcc and skips without them.
 
@@ -218,6 +218,20 @@ _QCASES = {
     "K5_bf16_7b_wdown": ("quant_matmul", 28, 11008, 4096, 0, torch.bfloat16),
     "K6_bf16_tma": ("int4_matmul", 37, 2048, 1024, 128, torch.bfloat16),
     "K6_bf16_g6": ("int4_matmul", 9, 600, 45, 6, torch.bfloat16),
+    # bf16 [N, K] on the tensor cores: tiles by TMA (K % 16 == 0, K % 32 for
+    # int4; any N) with a ragged K tail (int4: G 32, scales per element), the
+    # 7B wq at a verify-sized M, the Llama-3.2-1B wk, a group of 6 with the
+    # weight by TMA and with every tile loaded by the blocks (K % 32 != 0),
+    # and int8 loaded by the blocks (K % 16 != 0)
+    "K4_bf16_tma_raggedk": ("quant_matmul_t", 300, 1040, 512, 0, torch.bfloat16),
+    "K7_bf16_tma_raggedk_g32": ("int4_matmul_t", 37, 1056, 384, 32, torch.bfloat16),
+    "K4_bf16_7b_wq": ("quant_matmul_t", 28, 4096, 4096, 0, torch.bfloat16),
+    "K7_bf16_7b_wq": ("int4_matmul_t", 28, 4096, 4096, 128, torch.bfloat16),
+    "K4_bf16_1b_wk": ("quant_matmul_t", 1, 2048, 512, 0, torch.bfloat16),
+    "K7_bf16_1b_wk": ("int4_matmul_t", 1, 2048, 512, 128, torch.bfloat16),
+    "K7_bf16_g6_tma": ("int4_matmul_t", 9, 960, 100, 6, torch.bfloat16),
+    "K7_bf16_g6": ("int4_matmul_t", 9, 600, 45, 6, torch.bfloat16),
+    "K4_bf16_self": ("quant_matmul_t", 40, 1000, 67, 0, torch.bfloat16),
 }
 
 
@@ -252,21 +266,22 @@ def test_quant_kernel_matches_plain(cuda, name):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-# (M, first row) of the row-invariance test's calls for K5/K6 in bf16: every
-# token tile of the tensor-core route (8, 32 and 128 rows), ragged ones too
+# (M, first row) of the row-invariance test's calls in bf16: every token
+# tile of the tensor-core route (8, 32 and 128 rows), ragged ones too
 _TC_SPANS = ((1, 0), (4, 5), (7, 3), (28, 100), (37, 263), (256, 44), (300, 0), (1, 299))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_kernels_are_row_invariant(cuda, dtype):
     """A row's output does not depend on M or on its place in the batch:
-    bit-identical at M = 1, 7 and 37 (greedy AR == spec needs it); K5/K6 in
-    bf16, whose tensor-core tile follows M, at M = 1, 4, 7, 28, 37, 256 and
-    300, with tiles by TMA and loaded by the blocks."""
+    bit-identical at M = 1, 7 and 37 in fp32 (greedy AR == spec needs it);
+    in bf16, whose tensor-core tile follows M, at M = 1, 4, 7, 28, 37, 256
+    and 300, with tiles by TMA and loaded by the blocks, both layouts."""
     for name in ("K5_bf16", "K4_bf16", "K6_bf16", "K7_bf16", "K5_bf16_tma_raggedk",
-                 "K6_bf16_tma"):
+                 "K6_bf16_tma", "K4_bf16_tma_raggedk", "K7_bf16_tma_raggedk_g32",
+                 "K7_bf16_g6", "K4_bf16_self"):
         fn, x, qt = _quant_case(name, cuda)
-        tc = dtype == torch.bfloat16 and fn in ("quant_matmul", "int4_matmul")
+        tc = dtype == torch.bfloat16
         spans = _TC_SPANS if tc else ((1, 0), (7, 3), (1, 36))
         x = torch.randn(300 if tc else 37, x.shape[1], generator=cuda, device="cuda").to(dtype)
         full = _call(fn, x, qt)
@@ -275,7 +290,9 @@ def test_quant_kernels_are_row_invariant(cuda, dtype):
             assert torch.equal(part, full[start:start + m]), (name, start, m)
 
 
-@pytest.mark.parametrize("name", ["K5_bf16", "K5_bf16_7b_wdown", "K6_bf16", "K6_bf16_tma"])
+@pytest.mark.parametrize("name", ["K5_bf16", "K5_bf16_7b_wdown", "K6_bf16", "K6_bf16_tma",
+                                  "K4_bf16", "K4_bf16_7b_wq", "K7_bf16", "K7_bf16_7b_wq",
+                                  "K7_bf16_g6"])
 def test_quant_tensor_core_route_is_deterministic(cuda, name):
     """The K slices merge in a fixed order: repeated calls give the same
     bits, at a decode and a prefill M."""
@@ -291,12 +308,12 @@ def test_quant_split_geometry_matches_the_library(cuda):
     """The tile and slice counts the CPU tests' model of the K split uses
     are the compiled kernel's own."""
     for k in (2, 64, 300, 600, 1000, 1792, 2048, 4096, 11008, 14336):
-        assert tqmm.library_kn_geometry(k) == (tqmm.KN_TILE, tqmm.kn_slices(k)), k
+        assert tqmm.library_tc_geometry(k) == (tqmm.TC_TILE, tqmm.tc_slices(k)), k
 
 
 def test_quant_tensor_core_launches_count_bf16_calls_only(cuda):
-    """K5/K6 count every bf16 launch as a tensor-core launch, no fp32 one."""
-    for name in ("K5_bf16", "K6_bf16"):
+    """K4-K7 count every bf16 launch as a tensor-core launch, no fp32 one."""
+    for name in ("K5_bf16", "K6_bf16", "K4_bf16", "K7_bf16"):
         fn, x, qt = _quant_case(name, cuda)
         kernel = getattr(tqmm, fn)
         for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
@@ -308,14 +325,17 @@ def test_quant_tensor_core_launches_count_bf16_calls_only(cuda):
 
 @pytest.mark.parametrize("n", [1024, 1000])
 def test_quant_kernels_take_stacked_layer_views(cuda, n):
-    """Layer i > 0 of a stacked [L, K, N] weight (``QuantTensor[i]``, a view
-    at an offset) gives the bits of its contiguous copy and the plain
-    version's values."""
+    """Layer i > 0 of a stacked [L, K, N] or [L, N, K] weight
+    (``QuantTensor[i]``, a view at an offset) gives the bits of its
+    contiguous copy and the plain version's values."""
     from layerskip_tpu_torch.quant import quantize_tensor
 
     w = torch.randn(3, 2048, n, generator=cuda, device="cuda") * 0.02
-    for fn, bits in (("quant_matmul", 8), ("int4_matmul", 4)):
-        stacked = quantize_tensor(w, bits=bits, group=128 if bits == 4 else 0)
+    for fn, bits in (("quant_matmul", 8), ("int4_matmul", 4), ("quant_matmul_t", 8),
+                     ("int4_matmul_t", 4)):
+        k_last = fn.endswith("_t")
+        stacked = quantize_tensor(w.transpose(1, 2).contiguous() if k_last else w,
+                                  k_last=k_last, bits=bits, group=128 if bits == 4 else 0)
         for m in (1, 37):
             x = torch.randn(m, 2048, generator=cuda, device="cuda").bfloat16()
             layer = stacked[2]
@@ -323,6 +343,27 @@ def test_quant_kernels_take_stacked_layer_views(cuda, n):
             got = _call(fn, x, layer)
             copy = dataclasses.replace(layer, q=layer.q.clone(), scale=layer.scale.clone())
             assert torch.equal(got, _call(fn, x, copy)), (fn, m)
+            want = _call(fn, x, layer, plain=True).float()
+            assert (got.float() - want).abs().max().item() <= 2.0 ** -7 * want.abs().max().item()
+
+
+def test_quant_nk_kernels_take_misaligned_layer_views(cuda):
+    """K4/K7 in bf16 on layer 1 of a stacked [2, 999, 2056] weight, whose
+    view starts 8 (int8) or 12 (int4) bytes past a 16-byte boundary, and on
+    x rows that start 2 bytes past one: the bits of contiguous, aligned
+    copies and the plain version's values, at a decode and a verify M."""
+    from layerskip_tpu_torch.quant import quantize_tensor
+
+    w = torch.randn(2, 999, 2056, generator=cuda, device="cuda") * 0.02
+    for fn, bits in (("quant_matmul_t", 8), ("int4_matmul_t", 4)):
+        layer = quantize_tensor(w, k_last=True, bits=bits, group=8 if bits == 4 else 0)[1]
+        assert layer.q.data_ptr() % 16 != 0
+        copy = dataclasses.replace(layer, q=layer.q.clone(), scale=layer.scale.clone())
+        for m in (1, 7):
+            buf = torch.randn(m * 2056 + 1, generator=cuda, device="cuda").bfloat16()
+            x = buf[1:].view(m, 2056)
+            got = _call(fn, x, layer)
+            assert torch.equal(got, _call(fn, x.clone(), copy)), (fn, m)
             want = _call(fn, x, layer, plain=True).float()
             assert (got.float() - want).abs().max().item() <= 2.0 ** -7 * want.abs().max().item()
 

@@ -219,48 +219,73 @@ def test_wrappers_take_the_plain_version_on_cpu():
             torch.testing.assert_close(apply(x, qt), dense, atol=1e-4, rtol=0)
 
 
-# ------------------------------------------- K5/K6 on the tensor cores: the K split
+# ------------------------------------- K4-K7 on the tensor cores: the K split
 
-# the gate's [K, N] cases and one of the 7B K of w_down (11008, eight slices
-# of 21-22 tiles): (M, K, N, bits)
+# the gate's cases and one of the 7B K of w_down (11008, eight slices of
+# 21-22 tiles), for both weight layouts: (M, K, N, bits, k_last)
 _SPLIT = {
-    "quant_matmul": _GATE["quant_matmul"][:4],
-    "int4_matmul": _GATE["int4_matmul"][:4],
-    "quant_matmul_k11008": (3, 11008, 128, 8),
-    "int4_matmul_k11008": (3, 11008, 128, 4),
+    "quant_matmul": _GATE["quant_matmul"],
+    "int4_matmul": _GATE["int4_matmul"],
+    "quant_matmul_t": _GATE["quant_matmul_t"],
+    "int4_matmul_t": _GATE["int4_matmul_t"],
+    "quant_matmul_k11008": (3, 11008, 128, 8, False),
+    "int4_matmul_k11008": (3, 11008, 128, 4, False),
+    "quant_matmul_t_k11008": (3, 11008, 128, 8, True),
+    "int4_matmul_t_k11008": (3, 11008, 128, 4, True),
 }
 
 
 def _split_inputs(name, dtype):
     if name in _GATE:
         return _gate_inputs(name, dtype)
-    m, k, n, bits = _SPLIT[name]
+    m, k, n, bits, k_last = _SPLIT[name]
     rng = np.random.default_rng(7)
     x = rng.standard_normal((m, k)).astype(np.float32)
-    w = rng.standard_normal((k, n)).astype(np.float32)
+    w = rng.standard_normal((n, k) if k_last else (k, n)).astype(np.float32)
     group = 128 if bits == 4 else 0
-    jq = jquant.quantize_tensor(jnp.asarray(w), bits=bits, group=group)
-    tq = tquant.quantize_tensor(_t(w), bits=bits, group=group)
+    jq = jquant.quantize_tensor(jnp.asarray(w), k_last=k_last, bits=bits, group=group)
+    tq = tquant.quantize_tensor(_t(w), k_last=k_last, bits=bits, group=group)
     tx = _t(x).to({jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[dtype])
     return jnp.asarray(x, dtype), jq, tx, tq
 
 
+def _step_k(k_last):
+    """The K offsets inside a TC_TILE-element tile that each of its four
+    MMA steps (k16) takes, in slot order. [K, N] (K5/K6): step s takes
+    16s .. 16s + 15. [N, K] (K4/K7): lane c of a quad reads K 16c .. 16c +
+    15 of a weight row at once, and step s gives slots 2c, 2c + 1 the K
+    16c + 4s + {0, 1} and slots 2c + 8, 2c + 9 the K 16c + 4s + {2, 3}."""
+    if not k_last:
+        return [list(range(16 * s, 16 * s + 16)) for s in range(4)]
+    return [[16 * ((slot % 8) // 2) + 4 * s + 2 * (slot // 8) + slot % 2 for slot in range(16)]
+            for s in range(4)]
+
+
 def _kn_split(x, qt):
-    """The tensor-core route of K5/K6 (csrc/quant_matmul.cu) modelled in
+    """The tensor-core route of K4-K7 (csrc/quant_matmul.cu) modelled in
     torch: the weight as the kernel dequantizes it (int8 exactly; int4
-    rounded to x's dtype), K in tiles of ``KN_TILE``, slice s of
-    ``kn_slices(K)`` summing tiles [s * T // S, (s + 1) * T // S) in fp32,
-    the slices' sums added in slice order, int8's scale on the total, one
-    rounding."""
+    rounded to x's dtype), K in tiles of ``TC_TILE``, each tile in four
+    MMA steps of 16 K (``_step_k``: [N, K] weights permute K inside the
+    tile), each step's products added to the fp32 sum of its slice; slice
+    s of ``tc_slices(K)`` sums tiles [s * T // S, (s + 1) * T // S), the
+    slices' sums are added in slice order, int8's scale goes on the total,
+    one rounding."""
     k = x.shape[1]
-    w = (tqmm._int4_weight(qt.q, qt.scale.float(), qt.group, False, x.dtype)
+    w = (tqmm._int4_weight(qt.q, qt.scale.float(), qt.group, qt.k_last, x.dtype)
          if qt.group else qt.q.float())
-    tiles, n_slices = -(-k // tqmm.KN_TILE), tqmm.kn_slices(k)
+    if qt.k_last:
+        w = w.T
+    xf = x.float()
+    tiles, n_slices = -(-k // tqmm.TC_TILE), tqmm.tc_slices(k)
+    steps = [torch.tensor(ks) for ks in _step_k(qt.k_last)]
     total = None
     for s in range(n_slices):
-        lo = s * tiles // n_slices * tqmm.KN_TILE
-        hi = min(k, (s + 1) * tiles // n_slices * tqmm.KN_TILE)
-        part = x[:, lo:hi].float() @ w[lo:hi]
+        part = torch.zeros(x.shape[0], w.shape[1])
+        for t in range(s * tiles // n_slices, (s + 1) * tiles // n_slices):
+            for ks in steps:
+                ks = ks + t * tqmm.TC_TILE
+                ks = ks[ks < k]  # x is zero past K
+                part = part + xf[:, ks] @ w[ks]
         total = part if total is None else total + part
     if not qt.group:
         total = total * qt.scale.float()
@@ -269,18 +294,27 @@ def _kn_split(x, qt):
 
 def test_kn_split_geometry_mirrors_the_source():
     """The Python constants are the source's, the slices tile K exactly with
-    at least KN_MIN_TILES tiles each once K splits, and the 7B products
-    split into eight."""
+    at least TC_MIN_TILES tiles each once K splits, the 7B products split
+    into eight, and each MMA step of the [N, K] route takes 16 distinct K
+    of its tile, a lane's 4 consecutive ones in a step."""
     src = (Path(tqmm.__file__).resolve().parents[2] / "csrc" / "quant_matmul.cu").read_text()
-    for name, value in (("kTcKT", tqmm.KN_TILE), ("kTcMaxSlices", tqmm.KN_MAX_SLICES),
-                        ("kTcMinTiles", tqmm.KN_MIN_TILES)):
+    for name, value in (("kTcKT", tqmm.TC_TILE), ("kTcMaxSlices", tqmm.TC_MAX_SLICES),
+                        ("kTcMinTiles", tqmm.TC_MIN_TILES)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     for k in (1, 63, 64, 256, 300, 1024, 1536, 1792, 4096, 11008, 14336):
-        tiles, n = -(-k // tqmm.KN_TILE), tqmm.kn_slices(k)
+        tiles, n = -(-k // tqmm.TC_TILE), tqmm.tc_slices(k)
         bounds = [s * tiles // n for s in range(n + 1)]
-        assert bounds[0] == 0 and bounds[-1] == tiles and 1 <= n <= tqmm.KN_MAX_SLICES
-        assert n == 1 or min(np.diff(bounds)) >= tqmm.KN_MIN_TILES, k
-    assert tqmm.kn_slices(4096) == tqmm.kn_slices(11008) == 8
+        assert bounds[0] == 0 and bounds[-1] == tiles and 1 <= n <= tqmm.TC_MAX_SLICES
+        assert n == 1 or min(np.diff(bounds)) >= tqmm.TC_MIN_TILES, k
+    assert tqmm.tc_slices(4096) == tqmm.tc_slices(11008) == 8
+    for k_last in (False, True):
+        steps = _step_k(k_last)
+        assert sorted(sum(steps, [])) == list(range(tqmm.TC_TILE))
+    assert _step_k(False) == [list(range(16 * s, 16 * s + 16)) for s in range(4)]
+    for s, ks in enumerate(_step_k(True)):  # slots 2c, 2c + 1, 2c + 8, 2c + 9 of lane c
+        for c in range(4):
+            run = [ks[2 * c], ks[2 * c + 1], ks[2 * c + 8], ks[2 * c + 9]]
+            assert run == list(range(16 * c + 4 * s, 16 * c + 4 * s + 4)), (s, c, ks)
 
 
 @pytest.mark.parametrize("name", sorted(_SPLIT))
