@@ -41,11 +41,24 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      fp32 logits of the same weights; at least two tokens compared per
      request), and every served token within the solo
      streams' own bf16 noise of the teacher-forced greedy choice;
+  8. the entry points a user calls: phase 4's fp32 model through
+     ``save_params`` and ``load_model_and_tokenizer`` (bit-equal), greedy
+     AR == spec through ``LlamaGenerator``, ``cli.correctness`` (no
+     errors) and ``cli.benchmark`` on that checkpoint; then at 7B in bf16
+     (``random:7b?tail_eps=0&tail_from=8``, phase 5-7's weights freed
+     first) ``cli.benchmark`` over four 200-byte prompts (acceptance >=
+     0.9), AR against spec through ``LlamaGenerator`` (equal up to the
+     first near tie), ``stream_generate`` through the speculative streamer
+     (== ``generate``), the int8 loader (K4/K5), the serving command line's
+     builder (paged continuous batching on port 0: two POSTs and /healthz,
+     K2, each answer == its solo stream up to its first near tie), and
+     ``python -m layerskip_tpu_torch.bench --config 7b`` in a subprocess
+     (one JSON line, value > 0);
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
-Every kernel count is set to 0 just before each run of phases 5, 6 and 7
-and read just after it; every K1 and K4-K7 launch of those bf16 phases
-must have taken the tensor-core route, and every one of phase 4 (fp32) the
-CUDA-core route.
+Every kernel count is set to 0 just before each run of phases 5 to 8 and
+read just after it; every K1 and K4-K7 launch of the bf16 runs must have
+taken the tensor-core route, and every one of phase 4 and of phase 8's fp32
+checkpoint (fp32) the CUDA-core route.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing anything.
@@ -54,11 +67,13 @@ before printing anything.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1188,6 +1203,325 @@ def serving_full_width(params, cfg, spec_tok_s):
     return ok, stats, total
 
 
+# ------------------------------------------------------------ phase 8
+
+
+ENTRY_MODEL = f"random:7b?tail_eps=0&tail_from={FULL_EXIT}"
+ENTRY_STEPS = 64
+
+
+def entry_prompts(n: int, seed: int):
+    """``n`` prompts of about 200 bytes (200 tokens of the byte tokenizer:
+    prefill bucket 256)."""
+    words = np.random.default_rng(seed).integers(0, 10**6, size=(n, 40))
+    return [" ".join(str(w) for w in row)[:200] for row in words]
+
+
+def write_jsonl(path, prompts):
+    with open(path, "w") as f:
+        for p in prompts:
+            f.write(json.dumps({"prompt": p, "response": p[:40]}) + "\n")
+    return path
+
+
+def free_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def entry_fp32_exact(card, tmp):
+    """Phase 4's fp32 model through a checkpoint: ``save_params``, then
+    ``load_model_and_tokenizer(dir, float32)`` (bit-equal to the saved
+    weights) and greedy AR == spec through ``LlamaGenerator``, then
+    ``cli.correctness.main`` (total_errors 0) and ``cli.benchmark.main``
+    (its JSON written) on the same directory with ``--model_args
+    dtype=float32``. Every K1 launch on the fp32 (CUDA-core) route."""
+    from layerskip_tpu_torch.cli.args import Arguments
+    from layerskip_tpu_torch.cli.benchmark import BenchmarkArguments
+    from layerskip_tpu_torch.cli.benchmark import main as bench_main
+    from layerskip_tpu_torch.cli.correctness import main as correctness_main
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.generator import LlamaGenerator
+    from layerskip_tpu_torch.models.params import save_params
+
+    cfg, params = small_fp32_model()
+    ckpt = os.path.join(tmp, "fp32_ckpt")
+    save_params(params, ckpt, cfg)
+    loaded, lcfg, tok = load_model_and_tokenizer(ckpt, dtype=torch.float32, device="cuda")
+    same = lcfg.dtype == torch.float32 and all(
+        torch.equal(getattr(loaded.layers, f.name), getattr(params.layers, f.name))
+        for f in dataclasses.fields(params.layers)) and all(
+        torch.equal(getattr(loaded, f), getattr(params, f))
+        for f in ("embed", "final_norm", "lm_head"))
+    prompts = entry_prompts(4, 8)
+    spec = GenerationConfig(max_steps=48, sample=False, generation_strategy="self_speculative",
+                            exit_layer=2, num_speculations=4)
+    gen = LlamaGenerator(tok, loaded, lcfg, device="cuda")
+    reset_counts()
+    ar_cfg = dataclasses.replace(spec, generation_strategy="autoregressive", exit_layer=-1,
+                                 num_speculations=-1)  # the full model, as cli.correctness
+    pairs = [(gen.generate(p, ar_cfg), gen.generate(p, spec)) for p in prompts]
+    n_gen = read_counts()
+    equal = all(a.generation_strategy_result.predicted_tokens
+                == s.generation_strategy_result.predicted_tokens for a, s in pairs)
+    data = write_jsonl(os.path.join(tmp, "fp32.jsonl"), prompts)
+    bench_args = BenchmarkArguments(dataset="custom_jsonl", data_path=data,
+                                    random_shuffle=False)
+    args = Arguments(model=ckpt, model_args="dtype=float32", device="cuda",
+                     output_dir=os.path.join(tmp, "fp32_out"))
+    reset_counts()
+    corr = correctness_main(args, bench_args, spec)
+    metrics = bench_main(dataclasses.replace(args, output_dir=os.path.join(tmp, "fp32_bench")),
+                         bench_args, spec)
+    n_cli = read_counts()
+    written = []
+    for name in os.listdir(os.path.join(tmp, "fp32_bench")):
+        with open(os.path.join(tmp, "fp32_bench", name)) as f:
+            written.append(json.load(f))
+    nl = cfg.num_hidden_layers
+    routes = all(n[f"{k}_tensor_core"] == 0 for n in (n_gen, n_cli) for k in TENSOR_CORE_ROUTES)
+    ok = (same and equal and corr["total_errors"] == 0 and len(written) == 1
+          and set(written[0]) == {"args", "benchmark_arguments", "generation_config",
+                                  "metric_result"}
+          and n_gen["flash_prefill"] == 2 * len(prompts) * nl
+          and n_cli["flash_prefill"] == 3 * len(prompts) * nl and routes)
+    log(f"[entry fp32] save_params -> load_model_and_tokenizer(float32): bit-equal={same}; "
+        f"LlamaGenerator AR == spec on {len(prompts)} prompts: {equal} "
+        f"({[len(a.generation_strategy_result.predicted_tokens) for a, _ in pairs]} tokens); "
+        f"cli.correctness {json.dumps(corr)}; cli.benchmark acceptance "
+        f"{metrics['acceptance_rate']['mean']:.4f}, JSON files {len(written)}; K1 launches "
+        f"{n_gen['flash_prefill']} + {n_cli['flash_prefill']} (want {2 * len(prompts) * nl} + "
+        f"{3 * len(prompts) * nl}), none on the tensor cores: {routes} -> "
+        f"{'PASS' if ok else 'FAIL'} ({card})")
+    return ok
+
+
+def entry_full_width(card, tmp):
+    """The entry points at 7B in bf16 (identity tail past exit 8): the CLI
+    benchmark, AR against spec and streaming through ``LlamaGenerator``,
+    the int8 loader, the serving command line's builder (paged continuous
+    batching), then the bench in a subprocess. Returns (ok, stats, launch
+    counts of the bf16 runs)."""
+    from layerskip_tpu_torch.cli.args import Arguments
+    from layerskip_tpu_torch.cli.benchmark import BenchmarkArguments
+    from layerskip_tpu_torch.cli.benchmark import main as bench_main
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.generator import LlamaGenerator
+    from layerskip_tpu_torch.generation.streamer import SpeculativeTextStreamer
+
+    total, stats = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    spec = GenerationConfig(max_steps=ENTRY_STEPS, sample=False,
+                            generation_strategy="self_speculative", exit_layer=FULL_EXIT,
+                            num_speculations=FULL_W)
+    prompts = entry_prompts(4, 9)
+
+    # the CLI benchmark over a custom_jsonl task
+    data = write_jsonl(os.path.join(tmp, "7b.jsonl"), prompts)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = bench_main(Arguments(model=ENTRY_MODEL, device="cuda",
+                                   output_dir=os.path.join(tmp, "7b_bench")),
+                         BenchmarkArguments(dataset="custom_jsonl", data_path=data,
+                                            random_shuffle=False), spec)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    add(counts)
+    free_cuda()
+    acc, tps = metrics["acceptance_rate"]["mean"], metrics["tokens_per_second"]["mean"]
+    ok_bench = acc >= 0.9 and counts["flash_prefill"] == len(prompts) * 32
+    stats["cli_benchmark"] = dict(tok_s=tps, acceptance=acc, seconds=secs,
+                                  k1_launches=counts["flash_prefill"])
+    log(f"[entry 7b benchmark] cli.benchmark {ENTRY_MODEL}, {len(prompts)} prompts of 200 "
+        f"bytes, exit {FULL_EXIT} W {FULL_W}, {ENTRY_STEPS} steps: mean {tps:.2f} tok/s, "
+        f"acceptance {acc:.4f} (want >= 0.9), {secs:.1f}s with the load, K1 launches "
+        f"{counts['flash_prefill']} -> {'PASS' if ok_bench else 'FAIL'} ({card})")
+
+    # greedy AR against spec, and streaming, through LlamaGenerator
+    params, cfg, tok = load_model_and_tokenizer(ENTRY_MODEL, device="cuda")
+    gen = LlamaGenerator(tok, params, cfg, device="cuda")
+    ar_cfg = dataclasses.replace(spec, generation_strategy="autoregressive", exit_layer=-1,
+                                 num_speculations=-1)
+    reset_counts()
+    ar, sp = gen.generate(prompts[0], ar_cfg), gen.generate(prompts[0], spec)
+    add(read_counts())
+    ar_t = ar.generation_strategy_result.predicted_tokens
+    sp_t = sp.generation_strategy_result.predicted_tokens
+    ids = gen._encode(prompts[0])
+    tie, _, finite = near_tie(params, cfg, ids, ar_t)
+    agree = first_diff(ar_t, sp_t)
+    ok_gen = finite and (ar_t == sp_t or agree >= tie)
+    stats["generator"] = dict(ar_tok_s=ar.tokens_per_second, spec_tok_s=sp.tokens_per_second,
+                              acceptance=sp.generation_strategy_result.acceptance_rate,
+                              agree=agree, first_tie=tie, tokens=len(ar_t))
+    log(f"[entry 7b generator] AR {ar.tokens_per_second:.2f} tok/s, spec "
+        f"{sp.tokens_per_second:.2f} tok/s, acceptance "
+        f"{sp.generation_strategy_result.acceptance_rate:.4f}; spec == AR for {agree} of "
+        f"{len(ar_t)} tokens, first top-2 gap < {NEAR_TIE} at {tie} -> "
+        f"{'PASS' if ok_gen else 'FAIL'} ({card})")
+
+    buf = io.StringIO()
+    streamer = SpeculativeTextStreamer(tok, out=buf)
+    accepted = []
+
+    def on_round(drafted, acc_toks):
+        if drafted:
+            streamer.put(drafted, is_draft=True)
+            streamer.delete(len(drafted))
+        streamer.put(acc_toks)
+        accepted.extend(acc_toks)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = gen.engine.stream_generate(ids, spec, None, gen.eos_ids, on_round=on_round)
+    n = int(out.num_tokens[0])
+    secs = time.perf_counter() - t0
+    streamer.end()
+    ref = gen.engine.generate(ids, spec, None, gen.eos_ids)
+    add(read_counts())
+    n_ref = int(ref.num_tokens[0])
+    ok_stream = (accepted[:n] == ref.tokens[0, :n_ref].tolist() and n == n_ref
+                 and int(out.matches) == int(ref.matches) and len(buf.getvalue()) > 0)
+    stats["stream"] = dict(tokens=n, seconds=secs, tok_s=n / secs, bytes=len(buf.getvalue()))
+    log(f"[entry 7b stream] stream_generate through SpeculativeTextStreamer: {n} tokens in "
+        f"{secs:.3f}s ({n / secs:.2f} tok/s), {len(buf.getvalue())} bytes written; committed "
+        f"== generate's {n_ref} tokens and counters: {ok_stream} -> "
+        f"{'PASS' if ok_stream else 'FAIL'} ({card})")
+    del gen, params, out, ref
+    free_cuda()
+
+    # the int8 loader: K4/K5 on the tensor cores
+    qparams, qcfg, qtok = load_model_and_tokenizer(ENTRY_MODEL, quantize="int8", device="cuda")
+    qgen = LlamaGenerator(qtok, qparams, qcfg, device="cuda")
+    reset_counts()
+    q = qgen.generate(prompts[1], spec)
+    counts = read_counts()
+    add(counts)
+    kinds = ("quant_matmul_t", "quant_matmul")
+    ok_quant = all(counts[f"{k}_tensor_core"] == counts[k] > 0 for k in kinds) and \
+        q.num_tokens_generated > 0
+    stats["int8"] = dict(tok_s=q.tokens_per_second,
+                         acceptance=q.generation_strategy_result.acceptance_rate,
+                         **{k: counts[k] for k in kinds})
+    log(f"[entry 7b int8] load_model_and_tokenizer(quantize=int8), spec: "
+        f"{q.num_tokens_generated} tokens, {q.tokens_per_second:.2f} tok/s, acceptance "
+        f"{q.generation_strategy_result.acceptance_rate:.4f}; launches " + ", ".join(
+            f"{k} {counts[k]} ({counts[f'{k}_tensor_core']} on the tensor cores)" for k in kinds)
+        + f" -> {'PASS' if ok_quant else 'FAIL'} ({card})")
+    del qgen, qparams
+    free_cuda()
+
+    ok_serve, stats["serving"], counts = entry_serving(card)
+    add(counts)
+    free_cuda()
+    ok_line, stats["bench"] = entry_bench(card)
+    ok = ok_bench and ok_gen and ok_stream and ok_quant and ok_serve and ok_line
+    return ok, stats, total
+
+
+def entry_serving(card):
+    """``serving.build_from_args`` of ``--continuous --paged-pool-pages 9
+    --page-size 128`` on port 0: two concurrent POSTs and a /healthz; each
+    answer == its solo stream up to its first near tie, and K2 launched."""
+    import threading
+    import urllib.request
+
+    from layerskip_tpu_torch import serving
+    from layerskip_tpu_torch.cli.loading import SimpleTokenizer
+    from layerskip_tpu_torch.generation.engine import postprocess_output
+
+    args = serving.parse_args([
+        "--model", ENTRY_MODEL, "--device", "cuda", "--continuous", "--paged-pool-pages", "9",
+        "--page-size", "128", "--port", "0", "--max_steps", str(ENTRY_STEPS),
+        "--exit_layer", str(FULL_EXIT), "--num_speculations", str(FULL_W), "--sample", "false"])
+    sched, server = serving.build_from_args(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d" % server.server_address[:2]
+    prompts = entry_prompts(2, 10)
+    answers = [None, None]
+
+    def post(i):
+        req = urllib.request.Request(f"{url}/generate",
+                                     data=json.dumps({"prompt": prompts[i]}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            answers[i] = json.load(r)
+
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(timeout=600)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.load(r)
+        eng, tok = sched.engine, SimpleTokenizer(sched.engine.cfg.vocab_size)
+        eos = eng.cfg.eos_token_ids
+        agree = []
+        for p, a in zip(prompts, answers):
+            ids = tok.encode(p)
+            solo = postprocess_output(eng.generate(ids, sched.gen_cfg), eos, ENTRY_STEPS)
+            tie = near_tie(eng.params, eng.cfg, ids, solo)[0]
+            got = a["tokens"] if a else []
+            agree.append((first_diff(got, solo), min(tie, len(solo)), len(got), len(solo)))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        sched.stop()
+    n_tok = sum(g for _, _, g, _ in agree)
+    ok = (all(a is not None for a in answers) and health.get("ok") is True
+          and all(d >= t for d, t, _, _ in agree)
+          and counts["paged_decode_attention"] > 0 and not thread.is_alive())
+    stats = dict(tokens=n_tok, seconds=secs, tok_s=n_tok / secs,
+                 k2_launches=counts["paged_decode_attention"],
+                 completed=health["stats"]["completed"], agree=agree)
+    log(f"[entry 7b serving] serving main builder, continuous, pool 9 pages of 128: 2 "
+        f"concurrent POSTs, {n_tok} tokens in {secs:.3f}s ({n_tok / secs:.2f} tok/s), /healthz "
+        f"ok={health.get('ok')} completed={health['stats']['completed']}; (first diff, first "
+        f"near tie, served, solo) {agree}; K2 launches {counts['paged_decode_attention']} -> "
+        f"{'PASS' if ok else 'FAIL'} ({card})")
+    del sched, server, eng
+    return ok, stats, counts
+
+
+def entry_bench(card):
+    """``python -m layerskip_tpu_torch.bench --config 7b`` in a subprocess:
+    exit 0, one JSON line with value > 0."""
+    cmd = [sys.executable, "-m", "layerskip_tpu_torch.bench", "--config", "7b",
+           "--repeats", "1", "--max-steps", "64", "--deadline-s", "120"]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if len(lines) == 1 else {}
+    except ValueError:
+        line = {}
+    ok = (proc.returncode == 0 and {"metric", "value", "unit", "vs_baseline"} <= set(line)
+          and line["value"] > 0)
+    log(f"[entry 7b bench] {' '.join(cmd[1:])}: rc {proc.returncode} in {secs:.1f}s -> "
+        f"{'PASS' if ok else 'FAIL'} ({card})")
+    log(f"[entry 7b bench line] {json.dumps(line) if line else proc.stdout[-2000:]}")
+    if not ok:
+        log(proc.stderr[-4000:])
+    return ok, line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1232,12 +1566,20 @@ def main() -> int:
     t0 = time.time()
     ok_serve, sstats, scounts = serving_full_width(ctx[0], ctx[1], stats["spec_tok_s"])
     log(f"[phase 7] {time.time() - t0:.1f}s")
-    for more in (qcounts, scounts):
+    del ctx  # phase 8 loads its own weights
+    free_cuda()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ok_entry = entry_fp32_exact(card, tmp)
+        ok_entry_full, estats, ecounts = entry_full_width(card, tmp)
+    ok_entry &= ok_entry_full
+    log(f"[phase 8] {time.time() - t0:.1f}s")
+    for more in (qcounts, scounts, ecounts):
         for k, v in more.items():
             counts[k] += v
-    # phases 5-7 run in bf16: every K1 launch must take the tensor-core route
+    # phases 5-8 run in bf16: every K1 launch must take the tensor-core route
     ok_route = counts["flash_prefill_tensor_core"] == counts["flash_prefill"] > 0
-    log(f"[k1 route] phases 5-7: {counts['flash_prefill']} K1 launches, "
+    log(f"[k1 route] phases 5-8: {counts['flash_prefill']} K1 launches, "
         f"{counts['flash_prefill_tensor_core']} on the tensor-core route -> "
         f"{'PASS' if ok_route else 'FAIL'}")
     ok_full &= ok_route
@@ -1245,15 +1587,15 @@ def main() -> int:
     for label, kinds in (("k4/k7", ("quant_matmul_t", "int4_matmul_t")),
                          ("k5/k6", ("quant_matmul", "int4_matmul"))):
         ok_qroute = all(counts[f"{k}_tensor_core"] == counts[k] > 0 for k in kinds)
-        log(f"[{label} route] phases 5-7: " + ", ".join(
+        log(f"[{label} route] phases 5-8: " + ", ".join(
             f"{k} {counts[k]} launches, {counts[f'{k}_tensor_core']} on the tensor cores"
             for k in kinds) + f" -> {'PASS' if ok_qroute else 'FAIL'}")
         ok_quant &= ok_qroute
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
-        f"quantized_full_width={ok_quant} serving={ok_serve} {json.dumps(stats)} "
-        f"{json.dumps(qstats)} {json.dumps(sstats)} launches={json.dumps(counts)} "
-        f"total {time.time() - t_start:.1f}s")
-    if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve):
+        f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
+        f"{json.dumps(stats)} {json.dumps(qstats)} {json.dumps(sstats)} {json.dumps(estats)} "
+        f"launches={json.dumps(counts)} total {time.time() - t_start:.1f}s")
+    if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]

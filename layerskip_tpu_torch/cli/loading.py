@@ -1,0 +1,156 @@
+"""Model and tokenizer loading for the CLI apps (port of
+``layerskip_tpu/cli/loading.py``).
+
+``model`` is a local HF checkpoint directory (``config.json`` and
+``*.safetensors`` shards, read by the port's own reader) or
+``random:<preset>``: random weights of a preset shape with a byte-level
+tokenizer, for runs without a checkpoint. A checkpoint directory without
+usable tokenizer files (or a machine without ``transformers``) falls back to
+that tokenizer too.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Tuple
+
+import torch
+
+from layerskip_tpu_torch.config import PRESETS, ModelConfig, tiny_config
+from layerskip_tpu_torch.device import resolve_device
+from layerskip_tpu_torch.models.llama import LlamaParams
+from layerskip_tpu_torch.models.params import init_params, load_params
+
+
+class SimpleTokenizer:
+    """Whitespace/byte fallback tokenizer for random-weights smoke runs."""
+
+    eos_token_id = 0
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def encode(self, text: str):
+        return [1 + (b % (self.vocab_size - 2)) for b in text.encode()[:512]]
+
+    def __call__(self, text: str):
+        return {"input_ids": self.encode(text)}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(t)) for t in ids)
+
+
+# the JAX package's presets of families this port does not run yet
+_LATER = {"qwen3": "model families", "gemma2": "model families",
+          "gemma2-2b": "model families", "gemma3": "model families",
+          "moe": "MoE", "qwen3moe": "MoE", "moe-3b": "MoE"}
+
+
+def _preset_config(name: str) -> ModelConfig:
+    """The shapes of the JAX package's ``random:`` presets, in bf16."""
+    if name == "tiny":
+        return tiny_config(dtype=torch.bfloat16)
+    if name in PRESETS:  # 1b, 7b
+        return PRESETS[name]()
+    if name in _LATER:
+        raise NotImplementedError(
+            f"preset {name!r} needs the {_LATER[name]} slice of the port")
+    raise ValueError(f"unknown random preset: {name}")
+
+
+def maybe_shard(params: LlamaParams, dp: int = 1, tp: int = 1) -> LlamaParams:
+    """The JAX package shards the weights over a (dp, tp) mesh here; the
+    port runs on one device until its parallelism slice, so anything but
+    dp = tp = 1 raises."""
+    if dp != 1 or tp != 1:
+        raise NotImplementedError(f"dp={dp} tp={tp}: sharding is not ported yet")
+    return params
+
+
+def _maybe_quantize(params: LlamaParams, quantize: str) -> LlamaParams:
+    """Weight-only quantization at load (``none`` | ``int8`` | ``int4``)."""
+    if quantize in ("", "none", None):
+        return params
+    bits = {"int8": 8, "int4": 4}.get(quantize)
+    if bits is None:
+        raise ValueError(f"quantize must be none, int8 or int4, not {quantize!r}")
+    from layerskip_tpu_torch.quant import quantize_llama_params
+
+    return quantize_llama_params(params, bits=bits)
+
+
+def _scale_tail(params: LlamaParams, tail_eps: float, tail_from: int) -> LlamaParams:
+    """Scale wo/w_down of layers >= tail_from by tail_eps, in place on the
+    weights' device (no second copy of the stack). 0 makes those layers
+    identities, so early exits agree with the full model."""
+    for w in (params.layers.wo, params.layers.w_down):
+        w[tail_from:].mul_(torch.tensor(tail_eps, dtype=w.dtype, device=w.device))
+    return params
+
+
+def load_model_and_tokenizer(
+    model: str, dtype=torch.bfloat16, seed: int = 0, dp: int = 1, tp: int = 1,
+    quantize: str = "none", device="cuda",
+) -> Tuple[LlamaParams, ModelConfig, object]:
+    """(params on ``device``, config, tokenizer) for ``model``.
+
+    ``model`` is a local HF checkpoint directory (its weights cast to
+    ``dtype``) or ``random:<preset>`` (tiny, 1b or 7b, always bf16) with an
+    optional query ``?tail_eps=E&tail_from=F``: the output projections
+    (wo, w_down) of layers >= F (default L/4) are scaled by E, the
+    acceptance dial of the bench (0 makes them identities). ``random:``
+    weights come from torch's generator seeded with ``seed``, so they differ
+    from the JAX package's for the same seed (threefry); to compare the two
+    packages on the same weights, go through a checkpoint (``save_params``)
+    or ``params_from_numpy``. ``quantize`` applies weight-only int8/int4;
+    ``dp``/``tp`` > 1 raise. Raises without a GPU unless ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    maybe_shard(None, dp, tp)  # refuse before any weights are built
+    if model.startswith("random:"):
+        preset, _, query = model.split(":", 1)[1].partition("?")
+        cfg = _preset_config(preset)
+        params = init_params(cfg, seed=seed, device=dev)
+        kv = dict(p.split("=", 1) for p in query.split("&") if p)
+        if "tail_eps" in kv:
+            tail_from = int(kv.get("tail_from", max(cfg.num_hidden_layers // 4, 1)))
+            params = _scale_tail(params, float(kv["tail_eps"]), tail_from)
+        return _maybe_quantize(params, quantize), cfg, SimpleTokenizer(cfg.vocab_size)
+
+    if not os.path.isdir(model):
+        raise FileNotFoundError(
+            f"model {model!r} is not a local directory; download checkpoints "
+            "beforehand or use random:<tiny|1b|7b>")
+    cfg = ModelConfig.from_pretrained(model, dtype=dtype)
+    params = _maybe_quantize(load_params(model, cfg, device=dev), quantize)
+    try:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(model)
+    except Exception as exc:  # noqa: BLE001
+        # no transformers, or a checkpoint without tokenizer files (e.g. one
+        # written by save_params), for which transformers raises OSError,
+        # ValueError or AttributeError depending on the config
+        print(f"[loading] no usable tokenizer in {model} ({type(exc).__name__}); "
+              "falling back to the byte-level smoke tokenizer", file=sys.stderr)
+        tokenizer = SimpleTokenizer(cfg.vocab_size)
+    return params, cfg, tokenizer
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+
+def load_from_args(args) -> Tuple[LlamaParams, ModelConfig, object]:
+    """``load_model_and_tokenizer`` for a CLI app's ``Arguments``.
+    ``--model_args dtype=float32`` (or bfloat16, the default, or float16)
+    sets a checkpoint's dtype; ``random:`` presets stay bf16."""
+    from layerskip_tpu_torch.cli.args import simple_parse_args_string
+
+    kw = simple_parse_args_string(args.model_args)
+    dtype = kw.pop("dtype", "bfloat16")
+    if kw or dtype not in _DTYPES:
+        raise ValueError(f"model_args takes dtype={'|'.join(_DTYPES)}, not {args.model_args!r}")
+    return load_model_and_tokenizer(args.model, dtype=_DTYPES[dtype], seed=args.seed,
+                                    dp=args.dp, tp=args.tp, quantize=args.quantize,
+                                    device=args.device)

@@ -295,7 +295,7 @@ class ContinuousSession:
             self.state = _spec_round(
                 self.engine.params, self.engine.cfg, self.state, exit_layer=g.exit_layer,
                 num_speculations=g.num_speculations, scfg=self._scfg, eos_ids=self.eos,
-                ngram=int(g.no_repeat_ngram_size or 0), draft_params=self._draft)
+                ngram=int(g.no_repeat_ngram_size or 0), draft_params=self._draft)[0]
 
     # -- host side -----------------------------------------------------------
 

@@ -12,8 +12,8 @@ Weight-quantized bases (quant.quantize_llama_params), quantized drafters
 (``GenerationConfig.draft_quant``) and the int8 KV cache (``kv_quant``) run
 through the same entry point. ``Engine.continuous_session`` serves rows that
 join and leave at round granularity, over contiguous or paged KV
-(generation/continuous.py). Stepped mode and streaming belong to later
-slices.
+(generation/continuous.py). ``Engine.stream_generate`` runs the same
+self-speculative loop with a host callback after each round (streaming).
 """
 
 from __future__ import annotations
@@ -168,14 +168,11 @@ class Engine:
             )
         return self._draft_cache[key]
 
-    def generate(
-        self,
-        prompt_ids,  # list[int] (batch=1), list[list[int]] (ragged batch), or [B, T]
-        gen_cfg: GenerationConfig,
-        generator: Generators = None,  # one generator (default: seeded with 0),
-        # or one per row, so each row samples from its own stream
-        eos_ids: Sequence[int] = (),
-    ) -> GenerateOutput:
+    def _request(self, prompt_ids, gen_cfg: GenerationConfig, generator: Generators,
+                 eos_ids: Sequence[int]):
+        """The validated inputs of one generation: (strategy, ids [B, bucket],
+        true lengths [B], generator(s), the loops' keyword arguments, the
+        drafter's params or None)."""
         padded, true_lens = _pad_prompts(
             prompt_ids, fixed_bucket=gen_cfg.max_prompt_len or None
         )
@@ -222,15 +219,48 @@ class Engine:
                       eos_ids=eos, max_cache_len=max_cache_len,
                       ngram=int(gen_cfg.no_repeat_ngram_size or 0),
                       kv_quant=bool(gen_cfg.kv_quant))
+        draft = None
+        if strategy == "self_speculative":
+            common["num_speculations"] = num_speculations
+            bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
+            draft = self._draft_params(exit_layer, bits, dq_head, dq_mlp) if bits else None
+        return strategy, ids, true_len, generator, common, draft
+
+    def generate(
+        self,
+        prompt_ids,  # list[int] (batch=1), list[list[int]] (ragged batch), or [B, T]
+        gen_cfg: GenerationConfig,
+        generator: Generators = None,  # one generator (default: seeded with 0),
+        # or one per row, so each row samples from its own stream
+        eos_ids: Sequence[int] = (),
+    ) -> GenerateOutput:
         with torch.inference_mode():
+            strategy, ids, true_len, generator, common, draft = self._request(
+                prompt_ids, gen_cfg, generator, eos_ids)
             if strategy == "autoregressive":
                 return ar_generate(self.params, self.cfg, ids, true_len, generator,
                                    **common)
-            bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
-            draft = self._draft_params(exit_layer, bits, dq_head, dq_mlp) if bits else None
             return spec_generate(self.params, self.cfg, ids, true_len, generator,
-                                 num_speculations=num_speculations, draft_params=draft,
-                                 **common)
+                                 draft_params=draft, **common)
+
+    def stream_generate(
+        self,
+        prompt_ids,
+        gen_cfg: GenerationConfig,
+        generator: Generators = None,
+        eos_ids: Sequence[int] = (),
+        on_round=None,
+    ) -> GenerateOutput:
+        """Self-speculative ``generate`` with a host callback per round,
+        ``on_round(drafted, accepted)`` over row 0 (see ``spec_generate``). It
+        drives the draft-repaint streamer (generation/streamer.py)."""
+        with torch.inference_mode():
+            strategy, ids, true_len, generator, common, draft = self._request(
+                prompt_ids, gen_cfg, generator, eos_ids)
+            if strategy != "self_speculative":
+                raise ValueError(f"stream_generate runs self_speculative, not {strategy!r}")
+            return spec_generate(self.params, self.cfg, ids, true_len, generator,
+                                 draft_params=draft, on_round=on_round, **common)
 
     def continuous_session(
         self, gen_cfg: GenerationConfig, batch: int, prompt_bucket: int,

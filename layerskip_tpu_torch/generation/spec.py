@@ -12,7 +12,7 @@ later slices and raise.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -114,9 +114,16 @@ def spec_generate(
     hybrid: bool = False,
     tree_width: int = 0,
     draft_params: Optional[LlamaParams] = None,
+    on_round: Optional[Callable[[List[int], List[int]], None]] = None,
 ) -> GenerateOutput:
     """Whole self-speculative generation: prefill, then draft+verify rounds
-    until every row is done."""
+    until every row is done.
+
+    ``on_round(drafted, accepted)``, when given, gets row 0's token lists:
+    first ``([], [first token])`` after the prefill, then after each round
+    the window's W drafted positions (the extra token in place of the first
+    rejected draft) and the tokens the round committed. It takes the place
+    of the per-round ``done`` sync, so streaming adds no host transfer."""
     for on, what in ((draft_exit_prob > 0, "adaptive drafting"),
                      (pld_ngram > 0 or hybrid, "prompt-lookup drafting"),
                      (tree_width > 1, "tree speculation")):
@@ -128,12 +135,22 @@ def spec_generate(
         num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
         max_cache_len=max_cache_len, ngram=ngram, kv_quant=kv_quant,
     )
-    while not bool(state.done.all()):
-        state = _spec_round(
+    if on_round is None:
+        done = bool(state.done.all())
+    else:
+        *first, done = torch.cat([state.next_tok[0], state.done.all()[None]]).tolist()
+        on_round([], first)
+    while not done:
+        state, window, n = _spec_round(
             params, cfg, state, exit_layer=exit_layer,
             num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
             ngram=ngram, draft_params=draft_params,
         )
+        if on_round is None:
+            done = bool(state.done.all())
+        else:
+            *win, n0, done = torch.cat([window[0], n[:1], state.done.all()[None]]).tolist()
+            on_round(win[:num_speculations], win[:n0 + 1])
     return GenerateOutput(
         tokens=state.out,
         num_tokens=torch.minimum(state.out_len, state.steps),
@@ -153,11 +170,14 @@ def _spec_round(
     eos_ids: Tuple[int, ...],
     ngram: int = 0,
     draft_params: Optional[LlamaParams] = None,
-) -> _SpecState:
+) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
     """One draft+verify round: each active row commits its accepted drafts
-    plus one extra token. The state's caches are updated in place; random
-    draws come from the state's generator(s), row r's from its own when
-    there is one per row.
+    plus one extra token. Returns (the new state, the round's window [B, W+1]
+    and its accepted-draft counts n [B]): window[:, :n + 1] are the tokens a
+    row committed, and window[:, :W] the drafts with the extra token in place
+    of the first rejected one. The state's caches are updated in place;
+    random draws come from the state's generator(s), row r's from its own
+    when there is one per row.
 
     With ``draft_params`` (a quantized copy of layers [0, E), see
     quant.quantize_draft_params) the drafts read the cheap weights, but the
@@ -253,7 +273,7 @@ def _spec_round(
     eos_cap = torch.where(d_eos.any(dim=1), torch.argmax(d_eos.int(), dim=1) + 1, w)
     drafted = torch.minimum(torch.minimum(w_eff, eos_cap), w_dyn)
     act = active.long()
-    return _SpecState(
+    return (_SpecState(
         early=vres.early_cache,
         full=vres.full_cache,
         ctx=s.ctx + committed,
@@ -267,4 +287,4 @@ def _spec_round(
         matches=s.matches + torch.minimum(n, drafted) * act,
         drafts=s.drafts + drafted * act,
         generator=generator,
-    )
+    ), window, n)

@@ -6,6 +6,10 @@
   * ``params_from_flat_dict`` — HF ``LlamaForCausalLM`` names -> stacked params
   * ``params_from_numpy``    — the JAX package's ``LlamaParams`` (as numpy)
                                -> the port's params
+  * ``load_params`` / ``save_params`` — HF checkpoint directories of
+                               ``*.safetensors`` shards and ``config.json``,
+                               read and written by models/safetensors_io.py
+  * ``params_from_torch_state_dict`` — an HF ``LlamaForCausalLM`` state dict
 
 Storage orientation is the JAX package's: wq/wk/wv ``[L, out, in]``, wo and
 the MLP weights ``[L, in, out]``, embed ``[V, D]``, lm_head ``[D, V]`` or
@@ -15,6 +19,9 @@ None when tied.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
 import re
 from collections.abc import Mapping
 from typing import Dict
@@ -24,6 +31,7 @@ import torch
 
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.device import resolve_device
+from layerskip_tpu_torch.models import safetensors_io
 from layerskip_tpu_torch.models.llama import LayerParams, LlamaParams, check_supported
 from layerskip_tpu_torch.ops.linear import QuantTensor
 
@@ -203,3 +211,80 @@ def params_from_numpy(tree, device="cuda", dtype=None) -> LlamaParams:
         final_norm=conv(_field(tree, "final_norm")),
         lm_head=None if lm_head is None else conv(lm_head),
     )
+
+
+def params_from_torch_state_dict(state_dict: Mapping, cfg: ModelConfig,
+                                 device="cuda") -> LlamaParams:
+    """The port's params from a torch ``LlamaForCausalLM.state_dict()``."""
+    return params_from_flat_dict(state_dict, cfg, device=device)
+
+
+def load_params(model_dir: str, cfg: ModelConfig, device="cuda") -> LlamaParams:
+    """Params from a local HF checkpoint directory of ``*.safetensors``
+    shards, read by the port's own reader (F32, F16, BF16 tensors)."""
+    shards = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if not shards:
+        raise FileNotFoundError(f"no safetensors shards under {model_dir}")
+    tensors: Dict[str, torch.Tensor] = {}
+    for path in shards:
+        tensors.update(safetensors_io.load_file(path))
+    return params_from_flat_dict(tensors, cfg, device=device)
+
+
+def save_params(params: LlamaParams, model_dir: str, cfg: ModelConfig) -> str:
+    """Write params as an HF checkpoint (``model.safetensors`` of fp32
+    tensors under the HF names and orientation, and ``config.json``), the
+    layout the JAX package's ``save_params`` writes, so a checkpoint moves
+    between the two packages and HF tooling. Quantized params cannot be
+    saved. Returns the path of the tensors' file."""
+    check_supported(cfg)
+    leaves = [params.embed, params.final_norm, params.lm_head,
+              *(getattr(params.layers, f) for f in _LAYER_FIELDS)]
+    if any(isinstance(x, QuantTensor) for x in leaves):
+        raise ValueError("quantized params cannot be saved; save the dense weights")
+    f32 = lambda t: t.detach().float()  # noqa: E731
+    tensors = {"model.embed_tokens.weight": f32(params.embed),
+               "model.norm.weight": f32(params.final_norm)}
+    if params.lm_head is not None:
+        tensors["lm_head.weight"] = f32(params.lm_head).T.contiguous()
+    for hf_name, (field, transpose) in _LAYER_KEY_MAP.items():
+        stacked = getattr(params.layers, field)
+        for i in range(cfg.num_hidden_layers):
+            w = f32(stacked[i])
+            tensors[f"model.layers.{i}.{hf_name}"] = w.T.contiguous() if transpose else w
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, "model.safetensors")
+    safetensors_io.save_file(tensors, path, metadata={"format": "pt"})
+    # Mistral is the one family the port runs whose config differs: a
+    # sliding window on every layer
+    model_type, arch = (("mistral", "MistralForCausalLM") if cfg.sliding_window is not None
+                        else ("llama", "LlamaForCausalLM"))
+    config_json = {
+        "model_type": model_type, "architectures": [arch],
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.head_dim,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+        "attention_bias": cfg.attention_bias,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "bos_token_id": cfg.bos_token_id, "eos_token_id": cfg.eos_token_id,
+    }
+    if cfg.sliding_window is not None:
+        config_json["sliding_window"] = cfg.sliding_window
+    if cfg.attn_logit_softcap:
+        config_json["attn_logit_softcapping"] = cfg.attn_logit_softcap
+    if cfg.query_pre_attn_scalar:
+        config_json["query_pre_attn_scalar"] = cfg.query_pre_attn_scalar
+    rs = cfg.rope_scaling
+    if rs.rope_type != "default":
+        config_json["rope_scaling"] = {
+            "rope_type": rs.rope_type, "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor, "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings": rs.original_max_position_embeddings,
+        }
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(config_json, f, indent=2)
+    return path

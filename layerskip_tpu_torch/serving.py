@@ -11,12 +11,15 @@
     one the pool can never hold fails.
   * ``serve`` / ``make_server``: a stdlib HTTP server with POST /generate
     ({"prompt": str, ...overrides}) and GET /healthz.
+  * ``main``: the command line, ``python -m layerskip_tpu_torch.serving
+    --model <dir|random:preset> [--continuous --paged-pool-pages N ...]``
+    (``--device cpu`` runs on the CPU); ``build_from_args`` makes its
+    running scheduler and bound server from the parsed flags.
 
 Each scheduler runs its device work on its own thread; the session and the
 engine enter ``torch.inference_mode()`` themselves, since the mode is per
 thread. A failed batch or round resolves every pending future with the
-exception and the scheduler keeps running. The JAX module's ``main`` (the
-command line) comes with the port's CLI, which needs its model loading.
+exception and the scheduler keeps running.
 """
 
 from __future__ import annotations
@@ -413,9 +416,91 @@ def make_server(scheduler, tokenizer, default_cfg: GenerationConfig,
 def serve(scheduler, tokenizer, default_cfg: GenerationConfig,
           host: str = "127.0.0.1", port: int = 8000) -> None:
     """Blocking HTTP server over a running scheduler (see ``make_server``)."""
-    server = make_server(scheduler, tokenizer, default_cfg, host, port)
-    print(f"serving on http://{host}:{port}  (POST /generate)")
+    run_server(make_server(scheduler, tokenizer, default_cfg, host, port))
+
+
+def run_server(server) -> None:
+    """Serve until interrupted, then close the socket."""
+    host, port = server.server_address[:2]
+    print(f"serving on http://{host}:{port}  (POST /generate)", flush=True)
     try:
         server.serve_forever()
     finally:
         server.server_close()
+
+
+def parse_args(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="HTTP generation server")
+    ap.add_argument("--model", required=True)
+    ap.add_argument("--device", default="cuda", help="cuda, or cpu")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000, help="0 picks a free port")
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--continuous", action="store_true",
+                    help="in-flight continuous batching (one shared config)")
+    ap.add_argument("--prompt-bucket", type=int, default=256)
+    ap.add_argument("--paged-pool-pages", type=int, default=0,
+                    help="with --continuous: paged KV, a pool of N shared pages "
+                         "instead of per-slot worst-case buffers")
+    ap.add_argument("--page-size", type=int, default=256)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix KV pages across requests "
+                         "(requires --paged-pool-pages)")
+    ap.add_argument("--quantize", default="none", choices=("none", "int8", "int4"),
+                    help="weight-only quantization at load")
+    ap.add_argument("--chunk-prefill-tokens", type=int, default=0,
+                    help="with --continuous (contiguous KV): prefill new prompts "
+                         "in N-token chunks between decode rounds")
+    ap.add_argument("--generation_strategy", default="self_speculative")
+    ap.add_argument("--exit_layer", type=int, default=8)
+    ap.add_argument("--num_speculations", type=int, default=6)
+    ap.add_argument("--max_steps", type=int, default=256)
+    ap.add_argument("--sample", type=lambda v: v.lower() == "true", default=True)
+    return ap.parse_args(argv)
+
+
+def build_from_args(args):
+    """(started scheduler, HTTP server bound to ``args.host:args.port`` and
+    not yet serving) for parsed ``main`` flags. The caller serves
+    (``run_server``) and stops the scheduler."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+
+    params, cfg, tokenizer = load_model_and_tokenizer(
+        args.model, quantize=args.quantize, device=args.device)
+    engine = Engine(params, cfg, device=args.device)
+    default_cfg = GenerationConfig(
+        generation_strategy=args.generation_strategy,
+        exit_layer=min(args.exit_layer, cfg.num_hidden_layers - 1),
+        num_speculations=args.num_speculations,
+        max_steps=args.max_steps,
+        sample=args.sample,
+    )
+    if args.continuous:
+        sched = ContinuousBatchScheduler(
+            engine, default_cfg, batch_size=args.batch_size,
+            prompt_bucket=args.prompt_bucket, paged_pool_pages=args.paged_pool_pages,
+            page_size=args.page_size, prefix_cache=args.prefix_cache,
+            chunk_prefill_tokens=args.chunk_prefill_tokens)
+    else:
+        sched = BatchScheduler(engine, batch_size=args.batch_size)
+    sched.start()
+    try:
+        return sched, make_server(sched, tokenizer, default_cfg, args.host, args.port)
+    except OSError:  # the address is taken: stop the scheduler's thread
+        sched.stop()
+        raise
+
+
+def main(argv=None) -> None:
+    """CLI: python -m layerskip_tpu_torch.serving --model <dir|random:preset> ..."""
+    sched, server = build_from_args(parse_args(argv))
+    try:
+        run_server(server)
+    finally:
+        sched.stop()
+
+
+if __name__ == "__main__":
+    main()
