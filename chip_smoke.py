@@ -54,11 +54,24 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      K2, each answer == its solo stream up to its first near tie), and
      ``python -m layerskip_tpu_torch.bench --config 7b`` in a subprocess
      (one JSON line, value > 0);
+  9. the other drafting strategies: (a) phase 4's fp32 model, greedy prompt
+     lookup, hybrid, adaptive drafting (also with an int8 drafter), tree
+     speculation (k 2 and 3, and over the int8 cache) each == greedy AR
+     exactly, then 4-slot paged tree sessions (fp32 and int8 pools) ==
+     solo with K2's and K3's tree clause launched; (b) at 7B in bf16 (phase
+     5's weights built again) AR, static spec, prompt lookup, hybrid,
+     adaptive and tree at batch 1 (tok/s, acceptance, tokens a round), and
+     a 4-slot paged tree session (k 2, verifies of 13 queries through
+     K2/K3) over the bf16 and the int8 pool; each stream == AR (each
+     request its solo stream) up to its first gap within the bf16 paths'
+     measured noise, every token within that noise of the teacher-forced
+     argmax, and the tree exact on the same weights in fp32;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
-Every kernel count is set to 0 just before each run of phases 5 to 8 and
-read just after it; every K1 and K4-K7 launch of the bf16 runs must have
-taken the tensor-core route, and every one of phase 4 and of phase 8's fp32
-checkpoint (fp32) the CUDA-core route.
+Every kernel count is set to 0 just before each run of phases 5 to 9 and
+read just after it (K2's and K3's tree-clause launches too); every K1 and
+K4-K7 launch of the bf16 runs must have taken the tensor-core route, and
+every one of phase 4, phase 8's fp32 checkpoint and phase 9 (a) (fp32) the
+CUDA-core route.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing anything.
@@ -143,6 +156,7 @@ def kernel_counters():
 
 TENSOR_CORE_ROUTES = ("flash_prefill", "quant_matmul_t", "quant_matmul", "int4_matmul",
                       "int4_matmul_t")  # K1, K4-K7
+TREE_ROUTES = ("paged_decode_attention", "paged_decode_attention_q8")  # K2, K3
 
 
 def reset_counts():
@@ -150,14 +164,19 @@ def reset_counts():
         fn.launches = 0
     for name in TENSOR_CORE_ROUTES:
         kernel_counters()[name].tensor_core_launches = 0
+    for name in TREE_ROUTES:
+        kernel_counters()[name].tree_launches = 0
 
 
 def read_counts():
-    """Launches per kernel, and of K1's and K4-K7's those of their
-    tensor-core (bf16) routes as ``<name>_tensor_core``."""
+    """Launches per kernel, of K1's and K4-K7's those of their tensor-core
+    (bf16) routes as ``<name>_tensor_core``, and of K2's and K3's those
+    that ran the tree clause as ``<name>_tree``."""
     counts = {name: fn.launches for name, fn in kernel_counters().items()}
     for name in TENSOR_CORE_ROUTES:
         counts[f"{name}_tensor_core"] = kernel_counters()[name].tensor_core_launches
+    for name in TREE_ROUTES:
+        counts[f"{name}_tree"] = kernel_counters()[name].tree_launches
     return counts
 
 
@@ -363,52 +382,59 @@ def check_quant_kernels():
 
 def paged_cases():
     """(name, B, T, G, Hkv, Dh, page, row positions, dtype, int8 pool, window,
-    scale, softcap, tree, tol). The gate's ten paged cases and tolerances
+    scale, softcap, tree (depths, fanout) or None, tol). The gate's ten paged
+    cases and tolerances
     (scripts/kernel_gate.py: fp32, pages of 128, capacity 256, 200 written
     keys, rows at 150 and 90; tol 0.005, 0.01 with the Gemma score math,
     0.2 for an int8 pool), pages of 16 and 256, the 7B decode shapes of
     phase 7 (B 4, Hkv 32, G 1, Dh 128, page 128, about 400 keys of context,
     T 1 and 7, bf16 and int8 pools; tol one bf16 rounding of an output
-    below 2, 0.02), and the same at the context of phase 5's 2000-token
-    prompts (rows of 1904-2047 keys; B 4, and B 1 with one live slot)."""
+    below 2, 0.02), the same at the context of phase 5's 2000-token
+    prompts (rows of 1904-2047 keys; B 4, and B 1 with one live slot), and
+    phase 9's tree verify at those shapes (W 6 depths of fanout 2: T 13)."""
     f32, bf16 = torch.float32, torch.bfloat16
     gate = (150, 90)
+    g33, t62 = (3, 3), (6, 2)  # the gate's tree (T 10), phase 9's 7B tree (T 13)
     ctx7b = (391, 350, 300, 377)
     long7b = (2046, 1987, 1903, 2011)
     return [
-        ("paged_decode_t1", 2, 1, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, False, 5e-3),
-        ("paged_decode_t7", 2, 7, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, False, 5e-3),
-        ("paged_decode_sliding", 2, 4, 1, 2, 128, 128, gate, f32, False, 9, 0.0, 0.0, False,
+        ("paged_decode_t1", 2, 1, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, None, 5e-3),
+        ("paged_decode_t7", 2, 7, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, None, 5e-3),
+        ("paged_decode_sliding", 2, 4, 1, 2, 128, 128, gate, f32, False, 9, 0.0, 0.0, None,
          5e-3),
         ("paged_decode_gemma", 2, 4, 2, 2, 128, 128, gate, f32, False, 48, 32.0 ** -0.5, 50.0,
-         False, 0.01),
-        ("paged_decode_q8_t1", 2, 1, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, False, 0.2),
-        ("paged_decode_q8_t7", 2, 7, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, False, 0.2),
-        ("paged_decode_tree", 2, 10, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, True, 5e-3),
-        ("paged_decode_tree_q8", 2, 10, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, True,
+         None, 0.01),
+        ("paged_decode_q8_t1", 2, 1, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, None, 0.2),
+        ("paged_decode_q8_t7", 2, 7, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, None, 0.2),
+        ("paged_decode_tree", 2, 10, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, g33, 5e-3),
+        ("paged_decode_tree_q8", 2, 10, 2, 2, 128, 128, gate, f32, True, 0, 0.0, 0.0, g33,
          0.2),
         ("paged_decode_tree_gemma", 2, 10, 2, 2, 128, 128, gate, f32, False, 64,
-         32.0 ** -0.5, 50.0, True, 0.01),
+         32.0 ** -0.5, 50.0, g33, 0.01),
         ("paged_decode_tree_gemma_q8", 2, 10, 2, 2, 128, 128, gate, f32, True, 64,
-         32.0 ** -0.5, 50.0, True, 0.2),
-        ("paged_decode_page16", 2, 7, 2, 2, 128, 16, gate, f32, False, 0, 0.0, 0.0, False,
+         32.0 ** -0.5, 50.0, g33, 0.2),
+        ("paged_decode_page16", 2, 7, 2, 2, 128, 16, gate, f32, False, 0, 0.0, 0.0, None,
          5e-3),
-        ("paged_decode_page256_q8", 2, 7, 2, 2, 128, 256, gate, f32, True, 0, 0.0, 0.0, False,
+        ("paged_decode_page256_q8", 2, 7, 2, 2, 128, 256, gate, f32, True, 0, 0.0, 0.0, None,
          0.2),
         ("paged_decode_7b_t1_bf16", 4, 1, 1, 32, 128, 128, ctx7b, bf16, False, 0, 0.0, 0.0,
-         False, 0.02),
+         None, 0.02),
         ("paged_decode_7b_t7_bf16", 4, 7, 1, 32, 128, 128, ctx7b, bf16, False, 0, 0.0, 0.0,
-         False, 0.02),
+         None, 0.02),
         ("paged_decode_q8_7b_t1_bf16", 4, 1, 1, 32, 128, 128, ctx7b, bf16, True, 0, 0.0, 0.0,
-         False, 0.02),
+         None, 0.02),
         ("paged_decode_q8_7b_t7_bf16", 4, 7, 1, 32, 128, 128, ctx7b, bf16, True, 0, 0.0, 0.0,
-         False, 0.02),
+         None, 0.02),
+        ("paged_decode_7b_tree_t13_bf16", 4, 13, 1, 32, 128, 128, ctx7b, bf16, False, 0, 0.0,
+         0.0, t62, 0.02),
+        ("paged_decode_q8_7b_tree_t13_bf16", 4, 13, 1, 32, 128, 128, ctx7b, bf16, True, 0,
+         0.0, 0.0, t62, 0.02),
         ("paged_decode_7b_long_t1_bf16", 4, 1, 1, 32, 128, 128, long7b, bf16, False, 0, 0.0,
-         0.0, False, 0.02),
+         0.0, None, 0.02),
         ("paged_decode_q8_7b_long_t1_bf16", 4, 1, 1, 32, 128, 128, long7b, bf16, True, 0, 0.0,
-         0.0, False, 0.02),
+         0.0, None, 0.02),
         ("paged_decode_7b_b1_long_t1_bf16", 1, 1, 1, 32, 128, 128, long7b[:1], bf16, False, 0,
-         0.0, 0.0, False, 0.02),
+         0.0, 0.0, None, 0.02),
     ]
 
 
@@ -423,9 +449,9 @@ def paged_capacity(rows):
 def paged_case_tensors(b, t, g, hkv, dh, page, rows, dtype, quant, tree, gen, cap):
     """Pools of one layer (of a two-layer stack) with each row mapped to
     scrambled pages of ``cap`` keys a slot, written up to each row's
-    frontier, plus the tree's three depths of three chains past it. Returns
-    the k and v buffers, the same keys and values unquantized in an fp32
-    pool, q, the positions and the tree arguments."""
+    frontier, plus, for a tree (depths, fanout), its chains past it.
+    Returns the k and v buffers, the same keys and values unquantized in an
+    fp32 pool, q, the positions and the tree arguments."""
     from layerskip_tpu_torch.config import tiny_config
     from layerskip_tpu_torch.ops.paged_kv import init_paged_group, paged_geometry
 
@@ -455,14 +481,18 @@ def paged_case_tensors(b, t, g, hkv, dh, page, rows, dtype, quant, tree, gen, ca
 
     write(front, 0)
     tree_kw = {}
-    if tree:  # t = 1 + 3 * 3
+    if tree:  # t = 1 + depths * fanout
+        depths, fanout = tree
         scratch = ctx + 1
-        for d in range(3):
-            write(3, scratch + 3 * d)
-        offs = torch.tensor([0] + [1 + d for d in range(3) for _ in range(3)], device="cuda")
+        for d in range(depths):
+            write(fanout, scratch + fanout * d)
+        offs = torch.tensor([0] + [1 + d for d in range(depths) for _ in range(fanout)],
+                            device="cuda")
         pos = ctx[:, None] + offs
-        chain = torch.tensor([-1] + [c for _ in range(3) for c in range(3)], device="cuda")
-        tree_kw = dict(tree_chain=chain.expand(b, t), tree_scratch=scratch, tree_fanout=3)
+        chain = torch.tensor([-1] + [c for _ in range(depths) for c in range(fanout)],
+                             device="cuda")
+        tree_kw = dict(tree_chain=chain.expand(b, t), tree_scratch=scratch,
+                       tree_fanout=fanout)
     else:
         pos = ctx[:, None] + torch.arange(t, device="cuda")
     q = torch.randn(b, t, hkv * g, dh, generator=gen, device="cuda").to(dtype)
@@ -503,17 +533,20 @@ def paged_calls(q, k, v, pos, kw):
             lambda: pd.paged_decode_attention_plain(q, k.pool, v.pool, k.table, pos, **kw))
 
 
-def paged_sdpa_call(q, k, v, pos, window, scale):
+def paged_sdpa_call(q, k, v, pos, window, scale, tree_kw):
     """One ``scaled_dot_product_attention`` call over a contiguous view of
-    the pair gathered (and dequantized to q's dtype) ahead of time, with the
-    causal and window mask: the library yardstick of K2/K3."""
+    the pair gathered (and dequantized to q's dtype) ahead of time, with an
+    explicit boolean mask of the causal, window and tree clauses: the
+    library yardstick of K2/K3."""
     import torch.nn.functional as F
 
+    from layerskip_tpu_torch.ops.cuda.paged_decode import _rows, _visible
+
     kd, vd = (x.gather_view(q.dtype).transpose(1, 2) for x in (k, v))
-    kp = torch.arange(kd.shape[2], device="cuda")
-    mask = kp[None, None, :] <= pos[:, :, None]
-    if window:
-        mask &= kp[None, None, :] > pos[:, :, None] - window
+    q_pos, chain, scratch, fanout, window = _rows(
+        q, pos, tree_kw.get("tree_chain"), tree_kw.get("tree_scratch"),
+        tree_kw.get("tree_fanout", 0), window)
+    mask = _visible(q_pos.long(), kd.shape[2], window, chain, scratch, fanout)
     qt = q.transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(
         qt, kd, vd, attn_mask=mask[:, None], scale=scale or q.shape[-1] ** -0.5,
@@ -560,8 +593,8 @@ def check_paged_kernels():
         ms = time_cold_ms(fn)
         plain_ms = time_cold_ms(plain, 5)
         library_ms = None
-        if not tree and not cap:
-            library_ms = time_cold_ms(paged_sdpa_call(q, k, v, pos, window, scale))
+        if not cap:  # SDPA has no softcap
+            library_ms = time_cold_ms(paged_sdpa_call(q, k, v, pos, window, scale, tree_kw))
         bound_ms, bound_by = paged_bound(q, hkv, k.max_pages * page, pos, window, tree_kw,
                                          quant)
         ok &= passed
@@ -571,7 +604,7 @@ def check_paged_kernels():
             f"tol={tol}{extra} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
             f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
             f"bound_ms={bound_ms:.5f} ({bound_by}) shape=B{b} T{t} Hq{hkv * g} Hkv{hkv} "
-            f"Dh{dh} page{page} rows{rows} win{window} tree={tree} "
+            f"Dh{dh} page{page} rows{rows} win{window} tree(depths, fanout)={tree} "
             f"{'int8' if quant else str(dtype).split('.')[-1]} pool, q "
             f"{str(dtype).split('.')[-1]}")
     return ok, results
@@ -782,14 +815,14 @@ def fp32_model(params, cfg):
             dataclasses.replace(cfg, dtype=torch.float32))
 
 
-def near_tie(params, cfg, prompt, toks, kv_quant=False):
-    """(first position whose top-2 logit gap is under NEAR_TIE, the teacher-
-    forced argmax's agreement with ``toks``, all logits finite) from one
-    forward over prompt + toks (through the path's own cache type)."""
+def near_tie(params, cfg, prompt, toks, kv_quant=False, threshold=NEAR_TIE):
+    """(first position whose top-2 logit gap is under ``threshold``, the
+    teacher-forced argmax's agreement with ``toks``, all logits finite) from
+    one forward over prompt + toks (through the path's own cache type)."""
     logits = teacher_forced(params, cfg, prompt, toks, kv_quant)
     top2 = logits.topk(2, dim=-1).values
     gaps = (top2[:, 0] - top2[:, 1]).tolist()
-    tie = next((j for j, gap in enumerate(gaps) if gap < NEAR_TIE), len(gaps))
+    tie = next((j for j, gap in enumerate(gaps) if gap < threshold), len(gaps))
     return tie, first_diff(toks, logits.argmax(-1).tolist()), bool(torch.isfinite(logits).all())
 
 
@@ -1522,6 +1555,340 @@ def entry_bench(card):
     return ok, line
 
 
+# ------------------------------------------------------------ phase 9
+
+
+class RoundCounter:
+    """Counts the draft+verify rounds (linear and tree) that ``spec_generate``
+    and continuous sessions run while it is entered."""
+
+    def __enter__(self):
+        from layerskip_tpu_torch.generation import continuous, spec
+
+        self.n, self._saved = 0, []
+        for mod in (spec, continuous):
+            for name in ("_spec_round", "_tree_round"):
+                real = getattr(mod, name)
+                self._saved.append((mod, name, real))
+                setattr(mod, name, self._counting(real))
+        return self
+
+    def _counting(self, real):
+        def fn(*a, **kw):
+            self.n += 1
+            return real(*a, **kw)
+        return fn
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._saved:
+            setattr(mod, name, real)
+
+
+DRAFTING_FP32 = (  # (label, GenerationConfig fields) of phase 9's exact runs
+    ("prompt lookup n2", dict(generation_strategy="prompt_lookup", num_speculations=4,
+                              pld_ngram=2)),
+    ("hybrid n2", dict(generation_strategy="hybrid", exit_layer=2, num_speculations=4,
+                       pld_ngram=2)),
+    ("adaptive tau 0.3", dict(generation_strategy="self_speculative", exit_layer=2,
+                              num_speculations=4, draft_exit_prob=0.3)),
+    ("adaptive tau 0.3 draft_quant 8", dict(generation_strategy="self_speculative",
+                                            exit_layer=2, num_speculations=4,
+                                            draft_exit_prob=0.3, draft_quant=8)),
+    ("tree k2 W3", dict(generation_strategy="self_speculative", exit_layer=2,
+                        num_speculations=3, spec_tree_width=2)),
+    ("tree k3 W3", dict(generation_strategy="self_speculative", exit_layer=2,
+                        num_speculations=3, spec_tree_width=3)),
+    ("tree k2 W3 kv_quant", dict(generation_strategy="self_speculative", exit_layer=2,
+                                 num_speculations=3, spec_tree_width=2, kv_quant=True)),
+)
+
+
+def drafting_fp32_exact():
+    """Phase 9 (a): phase 4's narrow fp32 model (Dh 64: K2/K3 on the CUDA
+    cores). Greedy prompt lookup, hybrid, adaptive drafting (also with an
+    int8 drafter: K4/K5), tree speculation (k 2 and 3; a W 3, k 3 verify
+    has 10 queries) and a tree over the int8 cache each equal greedy AR
+    token for token (the kv_quant tree against the int8-cache AR), with
+    equal num_tokens. Then 4-slot paged tree sessions (k 2, W 4: drafts of
+    2 queries, verifies of 9), over the fp32 pool and the int8 pool, emit
+    every request's solo stream exactly, with the tree clause launched in
+    K2 and in K3. Counts are set to 0 before each run and read after it."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
+
+    cfg, params = small_fp32_model()
+    eng = Engine(params, cfg, device="cuda")
+    rng = np.random.default_rng(1)
+    # a prompt that repeats itself, so lookup drafts find matches
+    prompt = (rng.integers(3, cfg.vocab_size, size=50).tolist() * 4)[:200]
+    eos = (cfg.vocab_size + 7,)
+
+    def run(**kw):
+        reset_counts()
+        out = eng.generate(prompt, GenerationConfig(max_steps=48, sample=False, **kw),
+                           eos_ids=eos)
+        return (postprocess_output(out, eos, 48), int(out.num_tokens[0]), int(out.matches),
+                int(out.drafts), read_counts())
+
+    ok, total = True, {}
+    want = {kv: run(generation_strategy="autoregressive", kv_quant=kv)[:2]
+            for kv in (False, True)}
+    for label, kw in DRAFTING_FP32:
+        toks, n_tok, matches, drafts, n = run(**kw)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        same = (toks, n_tok) == want[kw.get("kv_quant", False)]
+        kernels = n["flash_prefill"] == cfg.num_hidden_layers and (
+            n["quant_matmul_t"] > 0 and n["quant_matmul"] > 0 if kw.get("draft_quant")
+            else n["quant_matmul_t"] == n["quant_matmul"] == 0) and all(
+            n[f"{k}_tensor_core"] == 0 for k in TENSOR_CORE_ROUTES)  # fp32: CUDA cores
+        good = same and kernels and len(toks) == 48
+        ok &= good
+        log(f"[fp32 drafting] {label}: equal_to_AR={same} ({n_tok} tokens), acceptance "
+            f"{matches}/{drafts}, launches flash_prefill={n['flash_prefill']} "
+            f"quant_matmul_t={n['quant_matmul_t']} quant_matmul={n['quant_matmul']} -> "
+            f"{'PASS' if good else 'FAIL'}")
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in (40, 7, 60, 23, 51, 12)]
+    budgets = [40, 9, 33, 48, 5, 20]
+    gen = GenerationConfig(max_steps=48, sample=False, generation_strategy="self_speculative",
+                           exit_layer=2, num_speculations=4, spec_tree_width=2)
+    for label, kv_quant in (("fp32 pool", False), ("int8 pool", True)):
+        g = dc.replace(gen, kv_quant=kv_quant)
+        kernel = "paged_decode_attention_q8" if kv_quant else "paged_decode_attention"
+        session = eng.continuous_session(g, batch=4, prompt_bucket=64, eos_ids=eos,
+                                         paged_pool_pages=60, page_size=16)
+        reset_counts()
+        got = serve_session(session, prompts, budgets)
+        n = read_counts()
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        solo = [postprocess_output(eng.generate(p, dc.replace(g, max_steps=m), eos_ids=eos),
+                                   eos, m) for p, m in zip(prompts, budgets)]
+        same = [got[i] == solo[i] for i in range(len(prompts))]
+        good = all(same) and n[f"{kernel}_tree"] > 0
+        ok &= good
+        log(f"[fp32 drafting] paged tree session, {label}: session == solo for "
+            f"{sum(same)}/{len(same)} requests ({sum(len(t) for t in got.values())} tokens), "
+            f"launches {kernel}={n[kernel]} of which tree clause {n[kernel + '_tree']} -> "
+            f"{'PASS' if good else 'FAIL'}")
+    return ok, total
+
+
+DRAFTING_7B = (  # (label, GenerationConfig fields) of phase 9's 7B batch-1 runs
+    ("AR", dict(generation_strategy="autoregressive")),
+    ("static spec", dict(generation_strategy="self_speculative", exit_layer=FULL_EXIT,
+                         num_speculations=FULL_W)),
+    ("prompt lookup n3", dict(generation_strategy="prompt_lookup", exit_layer=FULL_EXIT,
+                              num_speculations=FULL_W, pld_ngram=3)),
+    ("hybrid n3", dict(generation_strategy="hybrid", exit_layer=FULL_EXIT,
+                       num_speculations=FULL_W, pld_ngram=3)),
+    ("adaptive tau 0.5", dict(generation_strategy="self_speculative", exit_layer=FULL_EXIT,
+                              num_speculations=FULL_W, draft_exit_prob=0.5)),
+    ("tree k2", dict(generation_strategy="self_speculative", exit_layer=FULL_EXIT,
+                     num_speculations=FULL_W, spec_tree_width=2)),
+)
+
+
+def drafting_full_width(card):
+    """Phase 9 (b): the 7B identity-tail model in bf16 (phase 5's weights,
+    built again), exit 8, W 6. Batch 1, phase 5's 200-token prompt and 128
+    steps, in one call: AR, static spec, prompt lookup (n 3), hybrid,
+    adaptive drafting (tau 0.5) and tree speculation (k 2), each after a
+    short warm-up, with tok/s, acceptance, rounds and committed tokens a
+    round (for adaptive drafting, drafts a round). Then a 4-slot paged tree
+    session (k 2, pages of 128, bucket 256: drafts of 2 queries, verifies
+    of 13 through K2/K3's tree clause) over the bf16 pool and over the int8
+    pool, with the round ms and K2/K3's launches.
+
+    Agreement. Tree drafts run the early layers on 2 queries, not 1, so
+    their bf16 roundings differ from AR's, and the AR stream itself is not
+    always the teacher-forced argmax (its largest shortfall is the bf16
+    noise between the decode and prefill paths). So a near tie here is a
+    top-2 gap under twice the larger of NEAR_TIE and that noise: every
+    stream must equal AR (every served request its solo stream) up to its
+    first such gap, and every token must fall at most that far short of the
+    teacher-forced argmax given its own history. The same weights in fp32
+    hold the tree exact at full width: greedy tree == AR for 64 tokens,
+    and the paged tree session == solo for every request."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig, llama2_7b_config
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.models.params import make_random_params
+
+    cfg = llama2_7b_config()
+    params = make_random_params(cfg, exit_layer=FULL_EXIT, tail_eps=0.0, seed=0,
+                                device="cuda")
+    eng = Engine(params, cfg, device="cuda")
+    prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
+    eos = (cfg.vocab_size + 7,)
+    ok, stats, total = True, {"card": card, "batch1": {}}, {}
+    runs = {}
+    for label, kw in DRAFTING_7B:
+        g = GenerationConfig(max_steps=FULL_STEPS, sample=False, **kw)
+        eng.generate(prompt, dc.replace(g, max_steps=8), eos_ids=eos)  # warm-up
+        torch.cuda.synchronize()
+        with RoundCounter() as rounds:
+            toks, secs, matches, drafts, n = generate_timed(eng, prompt, g, eos)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        runs[label] = toks
+        st = dict(tok_s=len(toks) / secs, tokens=len(toks), seconds=secs,
+                  acceptance=matches / max(drafts, 1), matches=matches, drafts=drafts,
+                  rounds=rounds.n, tokens_per_round=len(toks) / max(rounds.n, 1))
+        if kw.get("draft_exit_prob"):
+            st["mean_draft_length"] = drafts / max(rounds.n, 1)
+        stats["batch1"][label] = st
+    _, ar_short = greedy_shortfall(params, cfg, prompt, runs["AR"])
+    limit = 2 * max(NEAR_TIE, ar_short)
+    first_tie, _, finite = near_tie(params, cfg, prompt, runs["AR"], threshold=limit)
+    stats["noise_limit"] = limit
+    for label, st in stats["batch1"].items():
+        agree = first_diff(runs["AR"], runs[label])
+        n_max, short = greedy_shortfall(params, cfg, prompt, runs[label])
+        st.update(equal_to_AR_for=agree, teacher_forced_argmax=n_max, worst_shortfall=short)
+        good = (finite and agree >= first_tie and short <= limit
+                and st["tokens"] == FULL_STEPS)
+        ok &= good
+        log(f"[7b drafting] {label}: {st['tokens']} tokens in {st['seconds']:.3f}s = "
+            f"{st['tok_s']:.2f} tok/s, acceptance {st['matches']}/{st['drafts']} = "
+            f"{st['acceptance']:.4f}, {st['rounds']} rounds ({st['tokens_per_round']:.2f} "
+            f"tokens a round"
+            + (f", {st['mean_draft_length']:.2f} drafts a round" if "mean_draft_length" in st
+               else "")
+            + f"), == AR for the first {agree} tokens (first AR gap under {limit:.4f} at "
+            f"{first_tie}), teacher-forced argmax {n_max}/{st['tokens']}, largest shortfall "
+            f"{short:.4f} (limit {limit:.4f}) -> {'PASS' if good else 'FAIL'} ({card})")
+    tree_kw = dict(DRAFTING_7B)["tree k2"]
+    params32, cfg32 = fp32_model(params, cfg)
+    ok_s, stats["session"], s_total = drafting_session_full_width(
+        eng, params, cfg, params32, cfg32, tree_kw, card)
+    ok &= ok_s
+    for k, v in s_total.items():
+        total[k] = total.get(k, 0) + v
+    del eng, params
+    free_cuda()
+    ok_x, stats["fp32"] = drafting_fp32_full_width(params32, cfg32, prompt, tree_kw)
+    ok &= ok_x
+    return ok, stats, total
+
+
+SESSION_LENS, SESSION_BUDGETS = (60, 200, 137, 95), (64, 48, 64, 32)
+
+
+def session_prompts(cfg):
+    rng = np.random.default_rng(9)
+    return [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in SESSION_LENS]
+
+
+def run_session(eng, gen, prompts, budgets):
+    """4 requests into a 4-slot paged session (pages of 128, bucket 256)
+    after a one-request warm-up; (tokens per row, insert s, rounds, round
+    s) with every kernel count set to 0 just before the insert and read
+    into ``counts`` after the last round."""
+    session = eng.continuous_session(gen, batch=SERVE_BATCH, prompt_bucket=SERVE_BUCKET,
+                                     eos_ids=(eng.cfg.vocab_size + 7,), paged_pool_pages=16,
+                                     page_size=SERVE_PAGE)
+    session.insert([0], prompts[:1], max_tokens=[4])  # warm-up
+    while session.has_active():
+        session.step()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    session.insert(list(range(len(prompts))), prompts, max_tokens=list(budgets))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got, rounds = {}, 0
+    while session.has_active():
+        for r, toks, _ in session.step():
+            got[r] = toks
+        rounds += 1
+    t2 = time.perf_counter()
+    return [got[r] for r in range(len(prompts))], t1 - t0, rounds, t2 - t1, read_counts()
+
+
+def drafting_session_full_width(eng, params, cfg, params32, cfg32, tree_kw, card):
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+
+    prompts, budgets = session_prompts(cfg), SESSION_BUDGETS
+    eos = (cfg.vocab_size + 7,)
+    gen = GenerationConfig(max_steps=max(budgets), sample=False, **tree_kw)
+    ok, stats, total = True, {}, {}
+    for label, kv_quant in (("bf16_pool", False), ("int8_pool", True)):
+        g = dc.replace(gen, kv_quant=kv_quant)
+        kernel = "paged_decode_attention_q8" if kv_quant else "paged_decode_attention"
+        got, t_ins, rounds, t_rounds, n = run_session(eng, g, prompts, budgets)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        solos = []
+        for p, m in zip(prompts, budgets):
+            out = eng.generate(p, dc.replace(g, max_steps=m), eos_ids=eos)
+            solos.append(out.tokens[0, :int(out.num_tokens[0])].tolist()[:m])
+        solo_short = max(greedy_shortfall(params, cfg, p, t, kv_quant)[1]
+                         for p, t in zip(prompts, solos))
+        limit = 2 * max(NEAR_TIE, solo_short)
+        agree, worst = [], 0.0
+        for p, m, toks, solo in zip(prompts, budgets, got, solos):
+            tie = near_tie(params32, cfg32, p, solo, kv_quant, threshold=limit)[0]
+            tie = min(tie, near_tie(params, cfg, p, solo, kv_quant, threshold=limit)[0])
+            agree.append((first_diff(toks, solo), min(tie, m), len(toks) == m))
+            worst = max(worst, greedy_shortfall(params, cfg, p, toks, kv_quant)[1])
+        compared = sum(t for _, t, _ in agree)
+        good = (all(a >= t and full for a, t, full in agree) and worst <= limit
+                and n[f"{kernel}_tree"] > 0)
+        ok &= good
+        n_tok = sum(len(t) for t in got)
+        stats[label] = dict(insert_ms=t_ins * 1e3, rounds=rounds,
+                            round_ms=t_rounds / max(rounds, 1) * 1e3, tokens=n_tok,
+                            tok_s=n_tok / (t_ins + t_rounds), launches=n[kernel],
+                            tree_launches=n[f"{kernel}_tree"], compared_to_solo=compared,
+                            worst_shortfall=worst, limit=limit)
+        log(f"[7b drafting session] tree k2, {label}: {SERVE_BATCH} requests, {n_tok} tokens, "
+            f"insert {stats[label]['insert_ms']:.2f} ms, {rounds} rounds at "
+            f"{stats[label]['round_ms']:.2f} ms, {stats[label]['tok_s']:.2f} tok/s; launches "
+            f"{kernel}={n[kernel]} of which tree clause {n[kernel + '_tree']}; equal to solo "
+            f"up to (first diff, first gap under {limit:.4f} or budget) "
+            f"{[(a, t) for a, t, _ in agree]}, {compared} tokens compared; largest served "
+            f"shortfall {worst:.4f} (limit {limit:.4f}) -> {'PASS' if good else 'FAIL'} "
+            f"({card})")
+    return ok, stats, total
+
+
+def drafting_fp32_full_width(params32, cfg32, prompt, tree_kw):
+    """The 7B weights in fp32: greedy tree (k 2) == AR exactly for 64 tokens,
+    and a paged tree session over an fp32 pool == solo for every request."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine
+
+    eng = Engine(params32, cfg32, device="cuda")
+    eos = (cfg32.vocab_size + 7,)
+
+    def run(p, m, **kw):
+        out = eng.generate(p, GenerationConfig(max_steps=m, sample=False, **kw), eos_ids=eos)
+        return out.tokens[0, :int(out.num_tokens[0])].tolist()[:m]
+
+    ar = run(prompt, 64, generation_strategy="autoregressive")
+    tree = run(prompt, 64, **tree_kw)
+    prompts, budgets = session_prompts(cfg32), SESSION_BUDGETS
+    got, _, _, _, n = run_session(eng, GenerationConfig(max_steps=max(budgets), sample=False,
+                                                        **tree_kw), prompts, budgets)
+    same = [toks == run(p, m, **tree_kw) for p, m, toks in zip(prompts, budgets, got)]
+    ok = tree == ar and len(ar) == 64 and all(same) and n["paged_decode_attention_tree"] > 0
+    log(f"[7b drafting fp32] tree k2 == AR for all 64 tokens: {tree == ar} (first diff "
+        f"{first_diff(ar, tree)}); paged tree session == solo for {sum(same)}/{len(same)} "
+        f"requests, K2 tree-clause launches {n['paged_decode_attention_tree']} -> "
+        f"{'PASS' if ok else 'FAIL'}")
+    return ok, dict(tree_equal_to_ar=tree == ar, session_equal_to_solo=sum(same))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1574,12 +1941,25 @@ def main() -> int:
         ok_entry_full, estats, ecounts = entry_full_width(card, tmp)
     ok_entry &= ok_entry_full
     log(f"[phase 8] {time.time() - t0:.1f}s")
-    for more in (qcounts, scounts, ecounts):
+    free_cuda()
+    t0 = time.time()
+    ok_draft, dcounts = drafting_fp32_exact()
+    ok_draft_full, dstats, dfcounts = drafting_full_width(card)
+    ok_draft &= ok_draft_full
+    phase9 = {k: dcounts[k] + dfcounts[k] for k in dcounts}
+    tree_ok = all(phase9[f"{k}_tree"] > 0 for k in TREE_ROUTES)
+    ok_draft &= tree_ok
+    log(f"[phase 9 launches] {json.dumps(phase9)}; tree clause launched in K2 and K3: "
+        f"{tree_ok}")
+    log(f"[phase 9] {time.time() - t0:.1f}s")
+    free_cuda()
+    # phases 5-8 and 9 (b) run in bf16 (9 (b)'s fp32 check only adds K2
+    # launches): every K1 launch must take the tensor-core route
+    for more in (qcounts, scounts, ecounts, dfcounts):
         for k, v in more.items():
             counts[k] += v
-    # phases 5-8 run in bf16: every K1 launch must take the tensor-core route
     ok_route = counts["flash_prefill_tensor_core"] == counts["flash_prefill"] > 0
-    log(f"[k1 route] phases 5-8: {counts['flash_prefill']} K1 launches, "
+    log(f"[k1 route] phases 5-9 (b): {counts['flash_prefill']} K1 launches, "
         f"{counts['flash_prefill_tensor_core']} on the tensor-core route -> "
         f"{'PASS' if ok_route else 'FAIL'}")
     ok_full &= ok_route
@@ -1587,15 +1967,19 @@ def main() -> int:
     for label, kinds in (("k4/k7", ("quant_matmul_t", "int4_matmul_t")),
                          ("k5/k6", ("quant_matmul", "int4_matmul"))):
         ok_qroute = all(counts[f"{k}_tensor_core"] == counts[k] > 0 for k in kinds)
-        log(f"[{label} route] phases 5-8: " + ", ".join(
+        log(f"[{label} route] phases 5-9 (b): " + ", ".join(
             f"{k} {counts[k]} launches, {counts[f'{k}_tensor_core']} on the tensor cores"
             for k in kinds) + f" -> {'PASS' if ok_qroute else 'FAIL'}")
         ok_quant &= ok_qroute
+    for k, v in dcounts.items():  # 9 (a) is fp32: its K1 and K4/K5 on the CUDA cores
+        counts[k] += v
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
-        f"{json.dumps(stats)} {json.dumps(qstats)} {json.dumps(sstats)} {json.dumps(estats)} "
-        f"launches={json.dumps(counts)} total {time.time() - t_start:.1f}s")
-    if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry):
+        f"drafting={ok_draft} {json.dumps(stats)} {json.dumps(qstats)} {json.dumps(sstats)} "
+        f"{json.dumps(estats)} {json.dumps(dstats)} launches={json.dumps(counts)} total "
+        f"{time.time() - t_start:.1f}s")
+    if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry
+            and ok_draft):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]

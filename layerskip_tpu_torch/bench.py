@@ -3,13 +3,15 @@ autoregressive decoding, as one JSON line.
 
     python -m layerskip_tpu_torch.bench [--config 7b|1b|tiny] [--exit-layer N]
         [--spec W] [--max-steps N] [--prompt-len N] [--repeats N]
-        [--tail-eps X] [--no-curve] [--headline-dq 8|4|0] [--deadline-s S]
-        [--device cuda|cpu]
+        [--tail-eps X] [--no-curve] [--headline-dq 8|4|0] [--tree-width K]
+        [--draft-exit-prob P] [--deadline-s S] [--device cuda|cpu]
 
 It prints ONE line ``{"metric", "value", "unit", "vs_baseline", ...}`` on
 stdout, with the metric names of the JAX package's ``bench.py``
-(``selfspec_speedup_vs_ar_<config>_exit<E>_spec<W>[_acc80]``); progress goes
-to stderr.
+(``selfspec_speedup_vs_ar_<config>[_tree<K>]_exit<E>_spec<W>[_acc80]``);
+progress goes to stderr. ``--tree-width`` K > 1 drafts K chains a round
+(tree speculation) and ``--draft-exit-prob`` P > 0 drafts adaptively, as in
+the JAX package's bench.
 
 Method (the JAX package's ``bench.py``, ``run_single``). Random weights of
 the config's full shape (``make_random_params``, seed 0, bf16) whose output
@@ -105,9 +107,12 @@ class Bench:
         self.ar_cfg = GenerationConfig(generation_strategy="autoregressive", **common)
         self.sp_cfg = GenerationConfig(generation_strategy="self_speculative",
                                        exit_layer=self.exit_layer,
-                                       num_speculations=args.spec, **common)
+                                       num_speculations=args.spec,
+                                       draft_exit_prob=args.draft_exit_prob,
+                                       spec_tree_width=args.tree_width, **common)
         self.metric_base = (f"selfspec_speedup_vs_ar_{args.config}"
-                            f"_exit{self.exit_layer}_spec{args.spec}")
+                            + (f"_tree{args.tree_width}" if args.tree_width > 1 else "")
+                            + f"_exit{self.exit_layer}_spec{args.spec}")
         self.sidecar = args.sidecar or os.path.join(
             REPO, f".bench_partial_torch_{args.config}.json")
         # the curve stops 20 s before the alarm that prints the line so far
@@ -299,6 +304,12 @@ def parse_args(argv=None):
                     help="one point at --tail-eps instead of the curve")
     ap.add_argument("--headline-dq", type=int, default=8, choices=(0, 8, 4),
                     help="curve: also an int8/int4 drafter at the bisected eps (0: off)")
+    ap.add_argument("--tree-width", type=int, default=0,
+                    help="tree speculation: K draft chains branching at each round's "
+                         "first token (0: linear drafting)")
+    ap.add_argument("--draft-exit-prob", type=float, default=0.0,
+                    help="confidence-adaptive drafting threshold (0: always draft the "
+                         "full window)")
     ap.add_argument("--deadline-s", type=float, default=3300.0,
                     help="wall budget; the best line so far is printed before it ends "
                          "(0: none)")

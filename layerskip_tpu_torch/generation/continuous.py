@@ -1,7 +1,9 @@
 """Continuous batching (port of ``layerskip_tpu/generation/continuous.py``
 and of what ``Engine._compiled_continuous`` builds there).
 
-Requests join and leave a live speculation state at round granularity:
+Requests join and leave a live speculation state at round granularity, with
+any draft source (early exit, adaptive, prompt lookup, hybrid, or tree
+rounds, generation/tree.py):
 ``_spec_insert_rows`` prefills new prompts into chosen rows while the other
 rows keep their KV, counters and buffers; ``_chunk_prefill_rows`` does it one
 prompt chunk at a time. ``ContinuousSession`` holds the state and drives
@@ -42,6 +44,7 @@ from layerskip_tpu_torch.generation.core import (
 from layerskip_tpu_torch.generation.processors import apply_ban, no_repeat_ngram_banned
 from layerskip_tpu_torch.generation.sampling import SamplingConfig, draw, token_distribution
 from layerskip_tpu_torch.generation.spec import _spec_round
+from layerskip_tpu_torch.generation.tree import _tree_round
 from layerskip_tpu_torch.models import llama
 from layerskip_tpu_torch.models.llama import LlamaParams
 from layerskip_tpu_torch.ops.kv_cache import KVCache
@@ -206,9 +209,12 @@ class ContinuousSession:
     pages."""
 
     def __init__(self, engine, gen_cfg, batch: int, prompt_bucket: int, eos,
-                 paged=None, prefix_cache: bool = False, draft=None):
+                 paged=None, prefix_cache: bool = False, draft=None, tree_width: int = 0,
+                 pld_ngram: int = 0):
         self.engine = engine
         self._draft = draft  # quantized draft-layer weights, or None
+        self._tree_width = tree_width  # > 1: tree rounds
+        self._pld_ngram = pld_ngram  # > 0: prompt-lookup (or hybrid) drafts
         self.gen_cfg = gen_cfg
         self.batch = batch
         self.prompt_bucket = prompt_bucket
@@ -216,8 +222,11 @@ class ContinuousSession:
         self.paged = paged  # (pool_pages, page_size) or None
         self._scfg = SamplingConfig(sample=gen_cfg.sample, temperature=gen_cfg.temperature,
                                     top_k=gen_cfg.top_k, top_p=gen_cfg.top_p)
+        # KV slots a round may write past a row's frontier: a tree parks k
+        # interleaved chains of W
+        self._slack = gen_cfg.num_speculations * max(tree_width, 1)
         # the longest logical context a row's frontier can reach
-        self._capacity = prompt_bucket + gen_cfg.max_steps + gen_cfg.num_speculations + 2
+        self._capacity = prompt_bucket + gen_cfg.max_steps + self._slack + 2
         self.prefix_cache = None
         self.allocator = None
         if paged:
@@ -289,13 +298,22 @@ class ContinuousSession:
     def _multi_round(self, k: int) -> None:
         """Up to ``k`` rounds; stops as soon as every row is done."""
         g = self.gen_cfg
+        common = dict(exit_layer=g.exit_layer, num_speculations=g.num_speculations,
+                      scfg=self._scfg, eos_ids=self.eos,
+                      ngram=int(g.no_repeat_ngram_size or 0))
         for _ in range(k):
             if bool(self.state.done.all()):
                 break
-            self.state = _spec_round(
-                self.engine.params, self.engine.cfg, self.state, exit_layer=g.exit_layer,
-                num_speculations=g.num_speculations, scfg=self._scfg, eos_ids=self.eos,
-                ngram=int(g.no_repeat_ngram_size or 0), draft_params=self._draft)[0]
+            if self._tree_width > 1:
+                self.state = _tree_round(self.engine.params, self.engine.cfg, self.state,
+                                         tree_width=self._tree_width, **common)[0]
+            else:
+                self.state = _spec_round(
+                    self.engine.params, self.engine.cfg, self.state,
+                    draft_exit_prob=float(g.draft_exit_prob or 0.0),
+                    pld_ngram=self._pld_ngram,
+                    hybrid=g.generation_strategy == "hybrid", draft_params=self._draft,
+                    **common)[0]
 
     # -- host side -----------------------------------------------------------
 
@@ -345,7 +363,7 @@ class ContinuousSession:
             # clipped budget, speculation overhang); the rest maps to trash.
             # All host-side, before any device change.
             pool_pages = self.paged[0]
-            w = self.gen_cfg.num_speculations
+            w = self._slack
             clipped = np.clip(steps_vec, 1, self.gen_cfg.max_steps)
             prefix_vec = np.zeros(self.batch, np.int64)
             for attempt in (0, 1):
@@ -402,9 +420,10 @@ class ContinuousSession:
             raise ValueError("chunked insert: contiguous KV only")
         if self.has_pending_prefill():
             raise ValueError("a chunked insert is already in flight")
-        # parked rows keep taking part in rounds and write W + 1 slots at the
-        # park position: they must fit the prompt_bucket-wide trash zone
-        if 1 + self.gen_cfg.num_speculations > self.prompt_bucket:
+        # parked rows keep taking part in rounds and write 1 + W * k slots
+        # (W + 1 without a tree) at the park position: they must fit the
+        # prompt_bucket-wide trash zone
+        if 1 + self._slack > self.prompt_bucket:
             raise ValueError("trash zone too small for a parked row's round writes")
         for r in rows:
             if self.active[r] or self._pending[r]:

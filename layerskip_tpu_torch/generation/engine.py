@@ -9,11 +9,20 @@ loops run on the host with one device sync per step (AR) or per round
 (``postprocess_batch``).
 
 Weight-quantized bases (quant.quantize_llama_params), quantized drafters
-(``GenerationConfig.draft_quant``) and the int8 KV cache (``kv_quant``) run
-through the same entry point. ``Engine.continuous_session`` serves rows that
-join and leave at round granularity, over contiguous or paged KV
+(``GenerationConfig.draft_quant``), the int8 KV cache (``kv_quant``) and
+every draft source (early exit, confidence-adaptive, prompt lookup, hybrid,
+tree speculation; generation/spec.py and generation/tree.py) run through
+the same entry point. ``Engine.continuous_session`` serves rows that join
+and leave at round granularity, over contiguous or paged KV
 (generation/continuous.py). ``Engine.stream_generate`` runs the same
-self-speculative loop with a host callback after each round (streaming).
+speculative loop with a host callback after each round (streaming).
+
+The request contract is the JAX package's, with its assertions raised as
+``ValueError``: ``prompt_lookup`` takes ``exit_layer = max(L // 2, 1)``
+when none is set (the split does not change its drafts); ``hybrid`` needs
+``exit_layer``, ``num_speculations`` and ``pld_ngram`` > 0; tree
+speculation (``spec_tree_width`` > 1) applies to ``self_speculative`` only,
+and neither trees nor hybrid drafting take adaptive drafting.
 """
 
 from __future__ import annotations
@@ -187,26 +196,17 @@ class Engine:
         if gen_cfg.stop_token_ids:
             eos = eos + tuple(int(x) for x in gen_cfg.stop_token_ids)
         strategy = gen_cfg.generation_strategy
-        if strategy in ("prompt_lookup", "hybrid"):
-            raise NotImplementedError(f"strategy {strategy!r} is not ported yet")
-        if strategy not in ("autoregressive", "self_speculative"):
+        if strategy not in ("autoregressive",) + _SPEC_STRATEGIES:
             raise ValueError(f"unknown strategy: {strategy}")
-        tree_width = int(gen_cfg.spec_tree_width or 0) if strategy == "self_speculative" else 0
-        for on, what in ((gen_cfg.draft_exit_prob, "adaptive drafting"),
-                         (tree_width > 1, "tree speculation")):
-            if on:
-                raise NotImplementedError(f"{what} is not ported yet")
-        exit_layer = gen_cfg.exit_layer
+        exit_layer, tree_width, pld = _check_strategy(gen_cfg, self.cfg)
         num_speculations = max(gen_cfg.num_speculations, 1)
-        if strategy == "self_speculative" and not (
-                exit_layer > 0 and gen_cfg.num_speculations > 0):
-            raise ValueError("self_speculative needs exit_layer > 0 and num_speculations > 0")
         max_steps = gen_cfg.max_steps
         cap = gen_cfg.max_seq_len or self.cfg.max_position_embeddings
         if bucket + max_steps > cap:
             # keep positions inside the model's trained RoPE range
             max_steps = max(cap - bucket, 1)
-        max_cache_len = bucket + max_steps + num_speculations + 2
+        # tree speculation parks k interleaved chains past the frontier
+        max_cache_len = bucket + max_steps + num_speculations * max(tree_width, 1) + 2
         if bucket % 256 == 0:
             # the JAX package rounds to its TPU kernel's key block; kept so
             # both packages allocate the same cache
@@ -220,8 +220,10 @@ class Engine:
                       ngram=int(gen_cfg.no_repeat_ngram_size or 0),
                       kv_quant=bool(gen_cfg.kv_quant))
         draft = None
-        if strategy == "self_speculative":
-            common["num_speculations"] = num_speculations
+        if strategy != "autoregressive":
+            common.update(num_speculations=num_speculations,
+                          draft_exit_prob=float(gen_cfg.draft_exit_prob or 0.0),
+                          pld_ngram=pld, hybrid=strategy == "hybrid", tree_width=tree_width)
             bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
             draft = self._draft_params(exit_layer, bits, dq_head, dq_mlp) if bits else None
         return strategy, ids, true_len, generator, common, draft
@@ -251,14 +253,16 @@ class Engine:
         eos_ids: Sequence[int] = (),
         on_round=None,
     ) -> GenerateOutput:
-        """Self-speculative ``generate`` with a host callback per round,
-        ``on_round(drafted, accepted)`` over row 0 (see ``spec_generate``). It
-        drives the draft-repaint streamer (generation/streamer.py)."""
+        """Speculative ``generate`` (any draft source) with a host callback
+        per round, ``on_round(drafted, accepted)`` over row 0 (see
+        ``spec_generate``). It drives the draft-repaint streamer
+        (generation/streamer.py)."""
         with torch.inference_mode():
             strategy, ids, true_len, generator, common, draft = self._request(
                 prompt_ids, gen_cfg, generator, eos_ids)
-            if strategy != "self_speculative":
-                raise ValueError(f"stream_generate runs self_speculative, not {strategy!r}")
+            if strategy == "autoregressive":
+                raise ValueError("stream_generate runs a speculative strategy, not "
+                                 "'autoregressive'")
             return spec_generate(self.params, self.cfg, ids, true_len, generator,
                                  draft_params=draft, on_round=on_round, **common)
 
@@ -267,25 +271,21 @@ class Engine:
         eos_ids: Sequence[int] = (), paged_pool_pages: int = 0, page_size: int = 256,
         prefix_cache: bool = False,
     ) -> ContinuousSession:
-        """A live ``batch``-slot self-speculative session (continuous
-        batching; generation/continuous.py). ``paged_pool_pages > 0`` puts
-        the KV in a pool of that many shared pages of ``page_size`` tokens
-        instead of per-slot worst-case buffers; ``prefix_cache`` (paged
-        only) also shares page-aligned prompt-prefix KV across requests.
-        ``draft_quant`` and ``kv_quant`` apply as in ``generate``."""
+        """A live ``batch``-slot speculative session (continuous batching;
+        generation/continuous.py) with the config's draft source.
+        ``paged_pool_pages > 0`` puts the KV in a pool of that many shared
+        pages of ``page_size`` tokens instead of per-slot worst-case
+        buffers; ``prefix_cache`` (paged only) also shares page-aligned
+        prompt-prefix KV across requests. ``draft_quant`` and ``kv_quant``
+        apply as in ``generate``."""
         eos = tuple(int(x) for x in eos_ids) or tuple(self.cfg.eos_token_ids)
         if gen_cfg.stop_token_ids:
             eos = eos + tuple(int(x) for x in gen_cfg.stop_token_ids)
         strategy = gen_cfg.generation_strategy
-        if strategy in ("prompt_lookup", "hybrid"):
-            raise NotImplementedError(f"strategy {strategy!r} is not ported yet")
-        if strategy != "self_speculative":
-            raise ValueError(f"continuous batching runs self_speculative, not {strategy!r}")
-        tree_width = int(gen_cfg.spec_tree_width or 0)
-        for on, what in ((gen_cfg.draft_exit_prob, "adaptive drafting"),
-                         (tree_width > 1, "tree speculation")):
-            if on:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if strategy not in _SPEC_STRATEGIES:
+            raise ValueError(f"continuous batching runs a speculative strategy, not "
+                             f"{strategy!r}")
+        _, tree_width, pld = _check_strategy(gen_cfg, self.cfg)
         if not (0 < gen_cfg.exit_layer < self.cfg.num_hidden_layers
                 and gen_cfg.num_speculations > 0):
             raise ValueError("continuous batching needs 0 < exit_layer < num_hidden_layers "
@@ -294,7 +294,38 @@ class Engine:
         bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
         draft = self._draft_params(gen_cfg.exit_layer, bits, dq_head, dq_mlp) if bits else None
         return ContinuousSession(self, gen_cfg, batch, prompt_bucket, eos, paged=paged,
-                                 prefix_cache=prefix_cache, draft=draft)
+                                 prefix_cache=prefix_cache, draft=draft,
+                                 tree_width=tree_width, pld_ngram=pld)
+
+
+_SPEC_STRATEGIES = ("self_speculative", "prompt_lookup", "hybrid")
+
+
+def _check_strategy(gen_cfg: GenerationConfig, cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(exit layer, tree width, prompt-lookup n) of a speculative request,
+    after the JAX engine's contract checks."""
+    strategy = gen_cfg.generation_strategy
+    exit_layer, w = gen_cfg.exit_layer, gen_cfg.num_speculations
+    tree_width = int(gen_cfg.spec_tree_width or 0) if strategy == "self_speculative" else 0
+    pld = int(gen_cfg.pld_ngram or 0) if strategy in ("prompt_lookup", "hybrid") else 0
+    adaptive = bool(gen_cfg.draft_exit_prob)
+    if strategy == "self_speculative":
+        if not (exit_layer > 0 and w > 0):
+            raise ValueError("self_speculative needs exit_layer > 0 and num_speculations > 0")
+        if tree_width > 1 and adaptive:
+            raise ValueError("spec_tree_width excludes adaptive drafting")
+    elif strategy == "prompt_lookup":
+        if w <= 0:
+            raise ValueError("prompt_lookup needs num_speculations > 0")
+        if exit_layer <= 0:  # the split does not change lookup drafts
+            exit_layer = max(cfg.num_hidden_layers // 2, 1)
+    elif strategy == "hybrid":
+        if not (exit_layer > 0 and w > 0 and pld > 0):
+            raise ValueError("hybrid needs exit_layer > 0, num_speculations > 0 and "
+                             "pld_ngram > 0")
+        if adaptive:
+            raise ValueError("hybrid and adaptive drafting are mutually exclusive")
+    return exit_layer, tree_width, pld
 
 
 def _pad_prompts(prompt_ids, fixed_bucket=None):

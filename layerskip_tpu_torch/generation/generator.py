@@ -1,9 +1,9 @@
 """Generator facade: tokenize -> engine -> detokenize, with timing (port of
 ``layerskip_tpu/generation/generator.py``).
 
-The strategy is ``GenerationConfig.generation_strategy``; ``autoregressive``
-and ``self_speculative`` run, and the strategies the engine has not ported
-yet raise there.
+The strategy is ``GenerationConfig.generation_strategy``; the speculative
+ones (``self_speculative``, ``prompt_lookup``, ``hybrid``) report their
+acceptance.
 """
 
 from __future__ import annotations
@@ -111,7 +111,8 @@ class LlamaGenerator:
             streamer.put(tokens)
             streamer.end()
         acceptance = None
-        if generation_config.generation_strategy == "self_speculative":
+        if generation_config.generation_strategy in (
+                "self_speculative", "prompt_lookup", "hybrid"):
             acceptance = int(out.matches) / max(int(out.drafts), 1)
         return make_result(self.tokenizer, tokens, acceptance, total_time)
 

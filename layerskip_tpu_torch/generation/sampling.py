@@ -12,7 +12,7 @@ sampled streams are compared with the JAX package's by distribution only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -68,13 +68,21 @@ def uniform(shape, generator: Generators, device) -> torch.Tensor:
 
 
 def draw(probs: torch.Tensor, generator: Generators,
-         scfg: SamplingConfig) -> torch.Tensor:
+         scfg: SamplingConfig, rows: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Token ids from [..., V] probabilities: the argmax when greedy (no
     random draw), else a Gumbel-max draw over log-probabilities (as
     ``jax.random.categorical`` draws), one independent draw per row from
-    ``generator`` (see ``uniform``)."""
+    ``generator`` (see ``uniform``). With one generator per row, ``rows``
+    (host flags) limits the draws to the rows flagged; the others get the
+    argmax and their generators stay untouched."""
     if not scfg.sample:
         return torch.argmax(probs, dim=-1)
+    if rows is not None and isinstance(generator, (list, tuple)) and not all(rows):
+        out = torch.argmax(probs, dim=-1)
+        idx = [r for r, on in enumerate(rows) if on]
+        if idx:
+            out[idx] = draw(probs[idx], [generator[r] for r in idx], scfg)
+        return out
     logp = torch.log(probs + 1e-30)
     u = uniform(probs.shape, generator, probs.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))

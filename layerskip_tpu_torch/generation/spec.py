@@ -1,13 +1,28 @@
 """Self-speculative decoding rounds (port of ``layerskip_tpu/generation/spec.py``).
 
-Prompt prefill, the draft+verify round with static-W early-exit drafting,
-rejection-sampling acceptance, and the whole-generation loop. The loop is a
-Python ``while`` with one host sync per round (``done.all()``) where the JAX
-package runs ``lax.while_loop``. A quantized drafter (``draft_params``)
-drafts from its own weights and the verify re-runs the window through the
-base stack; the int8 KV cache (``kv_quant``) runs in every round.
-Prompt-lookup, hybrid and adaptive drafting and tree speculation belong to
-later slices and raise.
+Prompt prefill, the draft+verify round and its draft sources, rejection-
+sampling acceptance, and the whole-generation loop. The loop is a Python
+``while`` with one host sync per round (``done.all()``) where the JAX
+package runs ``lax.while_loop``. The draft sources:
+
+  * early-exit drafting: W steps of layers [0, E) through the shared head,
+    verified by the remaining layers over the stitched window; a quantized
+    drafter (``draft_params``) drafts from its own weights and the verify
+    re-runs the window through the base stack;
+  * confidence-adaptive drafting (``draft_exit_prob``): a row stops
+    extending its window once a drafted token's probability falls below
+    the threshold, and the loop stops when no row is drafting (one host
+    read a draft step);
+  * prompt lookup (``pld_ngram``): the window copies what followed the most
+    recent earlier occurrence of the last n committed tokens, no model
+    call, and the full stack verifies it;
+  * hybrid: prompt lookup in rounds where every live row has a match, early
+    exit otherwise (a host branch, one read a round);
+  * tree speculation (``tree_width`` > 1, generation/tree.py).
+
+Committed tokens do not depend on the draft source: greedy output equals
+greedy AR for every one. The int8 KV cache (``kv_quant``) runs in every
+round.
 """
 
 from __future__ import annotations
@@ -15,6 +30,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.generation.core import (
@@ -32,8 +48,10 @@ from layerskip_tpu_torch.generation.sampling import (
     token_distribution,
     uniform,
 )
+from layerskip_tpu_torch.generation.tree import _tree_round
 from layerskip_tpu_torch.models import llama
 from layerskip_tpu_torch.models.llama import LlamaParams
+from layerskip_tpu_torch.ops.kv_cache import KVCache
 
 
 def _spec_prefill(
@@ -94,6 +112,33 @@ def _spec_prefill(
     )
 
 
+def _pld_propose(hist: torch.Tensor, hist_len: torch.Tensor, w: int, n: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prompt-lookup proposals ``(proposals [B, W], has_match [B])``: the W
+    tokens that followed the most recent earlier occurrence of each row's
+    last ``n`` committed tokens in ``hist`` [B, L] (valid length
+    ``hist_len`` [B], next_tok included), and whether there is one (the
+    hybrid strategy's selector). Rows without a match propose their own
+    trailing tokens, which the verifier rejects."""
+    b, l = hist.shape
+    dev = hist.device
+    idx = torch.arange(l, device=dev)
+    hist_len = hist_len.long()
+    sfx = hist.gather(1, (hist_len[:, None] - n + torch.arange(n, device=dev)).clamp(0, l - 1))
+    # match[j]: the n-window ending at j equals the suffix
+    match = torch.ones((b, l), dtype=torch.bool, device=dev)
+    for i in range(n):
+        shift = idx - (n - 1) + i
+        match &= (hist[:, shift.clamp(0, l - 1)] == sfx[:, i:i + 1]) & (shift >= 0)
+    # strictly before the suffix's own occurrence, with a whole window
+    match &= (idx[None] < (hist_len - 1)[:, None]) & (idx[None] >= n - 1)
+    has = match.any(dim=1)
+    last = (l - 1) - torch.argmax(match.flip(1).int(), dim=1)  # the latest match
+    last = torch.where(has, last, (hist_len - 2).clamp_min(0))
+    prop = last[:, None] + 1 + torch.arange(w, device=dev)
+    return hist.gather(1, prop.clamp(0, l - 1)), has
+
+
 def spec_generate(
     params: LlamaParams,
     cfg: ModelConfig,
@@ -123,12 +168,12 @@ def spec_generate(
     first ``([], [first token])`` after the prefill, then after each round
     the window's W drafted positions (the extra token in place of the first
     rejected draft) and the tokens the round committed. It takes the place
-    of the per-round ``done`` sync, so streaming adds no host transfer."""
-    for on, what in ((draft_exit_prob > 0, "adaptive drafting"),
-                     (pld_ngram > 0 or hybrid, "prompt-lookup drafting"),
-                     (tree_width > 1, "tree speculation")):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+    of the per-round ``done`` sync, so streaming adds no host transfer.
+
+    ``tree_width`` > 1 runs tree rounds (generation/tree.py); the other
+    knobs pick ``_spec_round``'s draft source."""
+    if draft_params is not None and tree_width > 1:
+        raise ValueError("draft_params is not wired into tree speculation")
     state = _spec_prefill(
         params, cfg, ids, true_len, generator,
         max_steps=max_steps, exit_layer=exit_layer,
@@ -141,11 +186,17 @@ def spec_generate(
         *first, done = torch.cat([state.next_tok[0], state.done.all()[None]]).tolist()
         on_round([], first)
     while not done:
-        state, window, n = _spec_round(
-            params, cfg, state, exit_layer=exit_layer,
-            num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
-            ngram=ngram, draft_params=draft_params,
-        )
+        if tree_width > 1:
+            state, window, n = _tree_round(
+                params, cfg, state, exit_layer=exit_layer,
+                num_speculations=num_speculations, tree_width=tree_width, scfg=scfg,
+                eos_ids=eos_ids, ngram=ngram)
+        else:
+            state, window, n = _spec_round(
+                params, cfg, state, exit_layer=exit_layer,
+                num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
+                ngram=ngram, draft_exit_prob=draft_exit_prob, pld_ngram=pld_ngram,
+                hybrid=hybrid, draft_params=draft_params)
         if on_round is None:
             done = bool(state.done.all())
         else:
@@ -169,6 +220,9 @@ def _spec_round(
     scfg: SamplingConfig,
     eos_ids: Tuple[int, ...],
     ngram: int = 0,
+    draft_exit_prob: float = 0.0,
+    pld_ngram: int = 0,
+    hybrid: bool = False,
     draft_params: Optional[LlamaParams] = None,
 ) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
     """One draft+verify round: each active row commits its accepted drafts
@@ -179,6 +233,12 @@ def _spec_round(
     random draws come from the state's generator(s), row r's from its own
     when there is one per row.
 
+    The draft source: prompt lookup when ``pld_ngram`` > 0 (with ``hybrid``,
+    only in rounds where every live row has a match), else early exit,
+    confidence-adaptive when ``draft_exit_prob`` > 0. Prompt-lookup drafts
+    are one-hot distributions, under which rejection sampling accepts while
+    the verifier agrees, and the window is verified through every layer.
+
     With ``draft_params`` (a quantized copy of layers [0, E), see
     quant.quantize_draft_params) the drafts read the cheap weights, but the
     verify must not reuse their exit hiddens: it re-runs
@@ -186,6 +246,9 @@ def _spec_round(
     from ``s.ctx``), so committed tokens are judged by the base model and
     greedy output equals base AR. That pass rewrites the early KV the
     drafts wrote at positions ``ctx .. ctx + W - 1``."""
+    if draft_params is not None and (pld_ngram > 0 or hybrid):
+        raise ValueError("draft_params applies only to early-exit drafting, not to "
+                         "prompt-lookup or hybrid drafts")
     b = s.next_tok.shape[0]
     e, w = exit_layer, num_speculations
     generator = s.generator
@@ -197,36 +260,120 @@ def _spec_round(
             return logits
         return apply_ban(logits, no_repeat_ngram_banned(hist, hist_len, ngram, cfg.vocab_size))
 
-    # ---- draft: W early-exit steps ----
-    dparams = params if draft_params is None else draft_params
-    early, tok, hist = s.early, s.next_tok, s.hist
-    d_toks, d_probs, exit_h = [], [], []
-    for i in range(w):
-        r = llama.forward_early(dparams, cfg, tok, early, s.ctx + i, e)
-        logits = ban(r.logits[:, -1], hist, hist_len0 + i)
-        probs = token_distribution(logits, scfg)  # [B, V]
-        d_tok = draw(probs, generator, scfg)  # [B]
-        hist = _row_update(hist, d_tok[:, None], hist_len0 + i)
-        early, tok = r.cache, d_tok[:, None]
-        d_toks.append(d_tok)
-        d_probs.append(probs)
-        exit_h.append(r.hidden[:, 0])
-    drafts = torch.stack(d_toks, dim=1)  # [B, W]
-    p_draft = torch.stack(d_probs, dim=1)  # [B, W, V]
-    w_dyn = torch.full((b,), w, dtype=torch.long, device=dev)
+    def full_verify(drafts):
+        """The window [next_tok, drafts] through every layer from ``s.ctx``."""
+        return llama.forward_split(params, cfg, torch.cat([s.next_tok, drafts], dim=1),
+                                   s.early, s.full, s.ctx, e)
 
-    # ---- verify: the stitched window through the remaining layers, or,
-    # after a quantized draft, the whole window through the base stack ----
-    if draft_params is None:
-        vres = llama.forward_remainder(
-            params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
-            draft_len=s.ctx + w, full_len=s.ctx, exit_layer=e,
-        )
+    def pld_draft_verify(proposals):
+        """Copied drafts, one-hot, verified through every layer."""
+        return (proposals, F.one_hot(proposals, cfg.vocab_size).float(),
+                _row_update(s.hist, proposals, hist_len0),
+                torch.full((b,), w, dtype=torch.long, device=dev), full_verify(proposals))
+
+    def model_draft_verify():
+        """W early-exit drafts, then the stitched window through the
+        remaining layers, or, after a quantized draft, the whole window
+        through the base stack."""
+        dparams = params if draft_params is None else draft_params
+        early, tok, hist = s.early, s.next_tok, s.hist
+        d_toks, d_probs, exit_h = [], [], []
+        for i in range(w):
+            r = llama.forward_early(dparams, cfg, tok, early, s.ctx + i, e)
+            logits = ban(r.logits[:, -1], hist, hist_len0 + i)
+            probs = token_distribution(logits, scfg)  # [B, V]
+            d_tok = draw(probs, generator, scfg)  # [B]
+            hist = _row_update(hist, d_tok[:, None], hist_len0 + i)
+            early, tok = r.cache, d_tok[:, None]
+            d_toks.append(d_tok)
+            d_probs.append(probs)
+            exit_h.append(r.hidden[:, 0])
+        drafts = torch.stack(d_toks, dim=1)  # [B, W]
+        if draft_params is None:
+            vres = llama.forward_remainder(
+                params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
+                draft_len=s.ctx + w, full_len=s.ctx, exit_layer=e,
+            )
+        else:
+            vres = full_verify(drafts)
+        return (drafts, torch.stack(d_probs, dim=1), hist,
+                torch.full((b,), w, dtype=torch.long, device=dev), vres)
+
+    def adaptive_draft_verify():
+        """Early-exit drafts while a row's drafted token keeps a probability
+        of at least ``draft_exit_prob`` under the raw softmax (the token that
+        falls below stays in the window). A row that stopped keeps its
+        generator, history and buffers; its KV writes in later steps land
+        past its own window. The loop ends when no row drafts."""
+        tau = float(draft_exit_prob)
+        dparams = params if draft_params is None else draft_params
+        early, tok, hist = s.early, s.next_tok, s.hist
+        drafting = ~s.done  # done rows never draft
+        w_dyn = torch.zeros((b,), dtype=torch.long, device=dev)
+        drafts = torch.zeros((b, w), dtype=torch.long, device=dev)
+        p_draft = torch.zeros((b, w, cfg.vocab_size), device=dev)
+        # the exit hiddens feed only the stitched verify; after a quantized
+        # draft the base stack re-runs the window instead
+        exit_h = (torch.zeros((b, w, cfg.hidden_size), dtype=params.embed.dtype, device=dev)
+                  if draft_params is None else None)
+        rows = drafting.tolist()  # one host read a draft step
+        i = 0
+        while i < w and any(rows):
+            r = llama.forward_early(dparams, cfg, tok, early, s.ctx + i, e)
+            logits = ban(r.logits[:, -1], hist, hist_len0 + i)
+            probs = token_distribution(logits, scfg)  # [B, V]
+            d_tok = draw(probs, generator, scfg, rows=rows)  # [B]
+            rec = drafting
+            drafts[:, i] = torch.where(rec, d_tok, drafts[:, i])
+            p_draft[:, i] = torch.where(rec[:, None], probs, p_draft[:, i])
+            if exit_h is not None:
+                exit_h[:, i] = torch.where(rec[:, None], r.hidden[:, 0].to(exit_h.dtype),
+                                           exit_h[:, i])
+            hist = torch.where(rec[:, None], _row_update(hist, d_tok[:, None], hist_len0 + i),
+                               hist)
+            tok = torch.where(rec[:, None], d_tok[:, None], tok)
+            w_dyn = w_dyn + rec.long()
+            lf = logits.float()
+            conf = torch.exp(lf.gather(1, d_tok[:, None])[:, 0] - torch.logsumexp(lf, dim=-1))
+            drafting = rec & (conf >= tau)
+            early = r.cache
+            rows = drafting.tolist()
+            i += 1
+        # rows that drafted nothing (done rows) verify a window of one; their
+        # acceptance is masked off below and they commit nothing
+        w_dyn = w_dyn.clamp_min(1)
+        if draft_params is not None:
+            return drafts, p_draft, hist, w_dyn, full_verify(drafts)
+        # the stitched window per row: the last draft's exit hidden goes at
+        # position w_dyn, zeros past it (position j's logits see only < j)
+        r_last = llama.forward_early(params, cfg, tok, early, s.ctx + w_dyn, e)
+        win_h = torch.cat([exit_h, torch.zeros_like(exit_h[:, :1])], dim=1)  # [B, W+1, D]
+        sel = torch.arange(w + 1, device=dev)[None, :, None] == w_dyn[:, None, None]
+        win_h = torch.where(sel, r_last.hidden.to(win_h.dtype), win_h)
+        full_h, kf, vf = llama.run_layers(cfg, params.layers, win_h, s.full.k, s.full.v,
+                                          s.ctx, layer_offset=e)
+        vres = llama.RemainderResult(logits=llama.lm_logits(params, cfg, full_h),
+                                     early_cache=r_last.cache,
+                                     full_cache=KVCache(k=kf, v=vf))
+        return drafts, p_draft, hist, w_dyn, vres
+
+    if hybrid:
+        if pld_ngram <= 0 or draft_exit_prob > 0:
+            raise ValueError("hybrid drafting needs pld_ngram > 0 and excludes adaptive "
+                             "drafting")
+        proposals, has = _pld_propose(s.hist, hist_len0, w, pld_ngram)
+        # one host read a round picks the source; both return the same tuple
+        if bool((has | s.done).all()):
+            drafts, p_draft, hist, w_dyn, vres = pld_draft_verify(proposals)
+        else:
+            drafts, p_draft, hist, w_dyn, vres = model_draft_verify()
+    elif pld_ngram > 0:
+        drafts, p_draft, hist, w_dyn, vres = pld_draft_verify(
+            _pld_propose(s.hist, hist_len0, w, pld_ngram)[0])
+    elif draft_exit_prob > 0:
+        drafts, p_draft, hist, w_dyn, vres = adaptive_draft_verify()
     else:
-        vres = llama.forward_split(
-            params, cfg, torch.cat([s.next_tok, drafts], dim=1), s.early, s.full,
-            s.ctx, e,
-        )
+        drafts, p_draft, hist, w_dyn, vres = model_draft_verify()
     vlogits = vres.logits
     if ngram > 0:
         vlogits = torch.stack(

@@ -5,8 +5,7 @@ LayerSkip exposes ``GenerationStrategy`` and one subclass per strategy; here
 each strategy is ``GenerationConfig.generation_strategy`` of one
 ``Engine.generate``, and these thin classes, which differ only in the name
 they set, let code written against the class-based API run unchanged.
-``prompt_lookup`` and ``hybrid`` raise in the engine until the
-drafting-strategies slice.
+The speculative strategies report their acceptance (matches / drafts).
 """
 
 from __future__ import annotations
@@ -19,6 +18,9 @@ import torch
 from layerskip_tpu_torch.config import GenerationConfig
 from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
 from layerskip_tpu_torch.generation.generator import GenerationStrategyResult
+
+
+SPECULATIVE = ("self_speculative", "prompt_lookup", "hybrid")
 
 
 class GenerationStrategy:
@@ -41,7 +43,7 @@ class GenerationStrategy:
         if streamer is not None:
             streamer.put(tokens)
         acceptance = None
-        if self.strategy_name != "autoregressive":
+        if self.strategy_name in SPECULATIVE:
             acceptance = int(out.matches) / max(int(out.drafts), 1)
         return GenerationStrategyResult(predicted_tokens=tokens, acceptance_rate=acceptance)
 
@@ -57,13 +59,16 @@ class SelfSpeculativeGenerationStrategy(GenerationStrategy):
 
 
 class PromptLookupGenerationStrategy(GenerationStrategy):
-    """n-gram drafts copied from the context (not ported yet: raises)."""
+    """n-gram drafts copied from the context, verified through the full
+    model: no draft-model calls (``GenerationConfig.pld_ngram`` sets the
+    match length)."""
 
     strategy_name = "prompt_lookup"
 
 
 class HybridGenerationStrategy(GenerationStrategy):
-    """Per-round choice of prompt-lookup or early-exit drafts (not ported
-    yet: raises)."""
+    """Per-round choice of the draft source: prompt lookup in rounds where
+    every live row's committed suffix occurred earlier, early exit in the
+    rest. Uses ``exit_layer``, ``num_speculations`` and ``pld_ngram``."""
 
     strategy_name = "hybrid"

@@ -99,6 +99,7 @@ def _one_layer(
     write_pos: Union[int, torch.Tensor],
     q_positions: torch.Tensor,  # [B, T]
     past_scalar: Optional[int],
+    tree_meta=None,  # tree chains (ops/attention.gqa_attention)
 ) -> torch.Tensor:
     b, t, _ = h.shape
     hq, hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -111,7 +112,7 @@ def _one_layer(
     write_kv(k_layer, v_layer, k, v, write_pos)
     attn = gqa_attention(
         q, k_layer, v_layer, q_positions, q_heads_per_kv=cfg.q_heads_per_kv,
-        past_scalar=past_scalar, sliding_window=cfg.sliding_window,
+        past_scalar=past_scalar, sliding_window=cfg.sliding_window, tree_meta=tree_meta,
         score_scale=(cfg.query_pre_attn_scalar ** -0.5
                      if cfg.query_pre_attn_scalar else None),
         logit_softcap=cfg.attn_logit_softcap,
@@ -130,27 +131,39 @@ def run_layers(
     v: torch.Tensor,
     past_len: Union[int, torch.Tensor],  # int (shared) or [B] tensor (per row)
     layer_offset: int = 0,  # group = layers [offset, offset + Lsub)
+    q_positions: Optional[torch.Tensor] = None,  # override: [B, T] or [T]
+    write_pos: Union[None, int, torch.Tensor] = None,  # override: KV write slot(s)
+    tree_meta=None,  # tree chains (ops/attention.gqa_attention)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a contiguous layer range; returns (h, k, v) with k/v updated in
     place. An int ``past_len`` gives every row the same contiguous positions
     (the flash-prefill kernel may run); a [B] tensor gives each row its own
-    positions, frontier and KV write offset (the masked path)."""
+    positions, frontier and KV write offset (the masked path).
+
+    ``q_positions`` / ``write_pos`` decouple logical positions from cache
+    slots (tree speculation writes several same-position chain tokens to
+    distinct interleaved slots, generation/tree.py); with ``q_positions``
+    the positions are never taken as one shared past, so K1 never runs."""
     check_supported(cfg)
     b, t, _ = h.shape
     if isinstance(past_len, torch.Tensor) and past_len.dim() == 0:
         past_len = int(past_len)
     steps = torch.arange(t, device=h.device)
-    if isinstance(past_len, int):
+    if q_positions is not None:
+        past_scalar = None
+        q_positions = q_positions.long().expand(b, t)
+    elif isinstance(past_len, int):
         past_scalar = past_len
         q_positions = (past_len + steps).expand(b, t)
     else:
         past_scalar = None
         past_len = past_len.long()
         q_positions = past_len[:, None] + steps
+    kv_write_pos = past_len if write_pos is None else write_pos
     cos, sin = rope_cos_sin(q_positions, rope_inv_freq(cfg, h.device))
     for j in range(k.shape[0]):
         h = _one_layer(cfg, layers, layer_offset + j, h, k[j], v[j], cos, sin,
-                       past_len, q_positions, past_scalar)
+                       kv_write_pos, q_positions, past_scalar, tree_meta)
     return h, k, v
 
 

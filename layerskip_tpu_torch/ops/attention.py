@@ -10,7 +10,8 @@ Dispatch, as in the JAX package:
 
   * a paged cache (``PagedKV``/``PagedQuantKV``, ops/paged_kv.py) with at
     most 16 queries and a head_dim the kernels take goes to K2 or K3
-    (``ops/cuda/paged_decode.py``), which read the pages in place; any other
+    (``ops/cuda/paged_decode.py``), which read the pages in place, the tree
+    clause included (tree drafts and verify windows); any other
     paged call (the insert prefill of a prompt bucket, at past 0 or at
     per-row prefix lengths) gathers the logical view in q's dtype and goes
     on below;
@@ -21,6 +22,14 @@ Dispatch, as in the JAX package:
     takes the masked path below, as the JAX package's contiguous-cache
     decode does. An int8 cache (``QuantKV``) is first dequantized to q's
     dtype, as the JAX package does, and then takes the same dispatch.
+
+Tree speculation (generation/tree.py) keeps ``fanout`` draft chains in
+interleaved slots past a row's scratch start: slot ``scratch + d * fanout +
+c`` holds depth ``d + 1`` of chain ``c``. ``tree_meta`` = (query chains [B, T],
+scratch starts [] or [B], fanout) adds one clause to the rule: a key in the
+scratch region sits at logical position ``scratch + rel // fanout`` on chain
+``rel % fanout``, and a query sees it when its position is visible and the
+key's chain is -1 (committed) or the query's own.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors.
@@ -59,13 +68,11 @@ def gqa_attention(
     past_scalar: Optional[int] = None,  # set when positions are past + arange(T)
     sliding_window: Union[None, int, torch.Tensor] = None,  # int, or a 0-d
     # tensor (runtime window, 0 = global)
-    tree_meta=None,
+    tree_meta=None,  # (q_chain [B, T], scratch [] or [B], fanout): see above
     score_scale: Optional[float] = None,  # None/0 => head_dim ** -0.5
     logit_softcap: float = 0.0,
 ) -> torch.Tensor:
     """Returns attention output [B, T, Hq, Dh] in q's dtype."""
-    if tree_meta is not None:
-        raise NotImplementedError("tree attention is not ported yet")
     b, t, hq, dh = q.shape
     if isinstance(k_cache, (PagedKV, PagedQuantKV)):
         if t <= _MAX_SHORT_QUERY and dh in HEAD_DIMS:
@@ -73,6 +80,9 @@ def gqa_attention(
                       sliding_window=sliding_window or 0,
                       score_scale=float(score_scale or 0.0),
                       logit_softcap=float(logit_softcap or 0.0))
+            if tree_meta is not None:
+                chain, scratch, fanout = tree_meta
+                kw.update(tree_chain=chain, tree_scratch=scratch, tree_fanout=int(fanout))
             if isinstance(k_cache, PagedKV):
                 return paged_decode_attention(q, k_cache.pool, v_cache.pool, k_cache.table,
                                               q_positions, **kw)
@@ -84,7 +94,8 @@ def gqa_attention(
     elif isinstance(k_cache, QuantKV):
         k_cache = k_cache.dequantize(q.dtype)
         v_cache = v_cache.dequantize(q.dtype)
-    if past_scalar is not None and t > _MAX_SHORT_QUERY and dh in HEAD_DIMS:
+    if (past_scalar is not None and tree_meta is None and t > _MAX_SHORT_QUERY
+            and dh in HEAD_DIMS):
         return flash_prefill_attention(
             q, k_cache, v_cache, int(past_scalar),
             q_heads_per_kv=q_heads_per_kv,
@@ -105,14 +116,27 @@ def gqa_attention(
         cap = float(logit_softcap)
         scores = cap * torch.tanh(scores / cap)
 
-    key_idx = torch.arange(s, device=q.device)
+    key_pos = torch.arange(s, device=q.device)[None, None, :]  # [1, 1, S]
     q_pos = q_positions[:, :, None]  # [B, T, 1]
-    mask = key_idx[None, None, :] <= q_pos  # [B, T, S]
+    tree_mask = None
+    if tree_meta is not None:
+        q_chain, scratch, fanout = tree_meta
+        scratch = torch.as_tensor(scratch, device=q.device).long().reshape(-1).expand(b)
+        rel = key_pos[0] - scratch[:, None]  # [B, S]
+        in_scr = rel >= 0
+        key_chain = torch.where(in_scr, torch.remainder(rel, fanout), -1)[:, None, :]
+        key_pos = torch.where(in_scr, scratch[:, None] + torch.div(
+            rel, fanout, rounding_mode="floor"), key_pos[0])[:, None, :]  # [B, 1, S]
+        q_chain = torch.as_tensor(q_chain, device=q.device).long().expand(b, t)
+        tree_mask = (key_chain < 0) | (key_chain == q_chain[:, :, None])
+    mask = key_pos <= q_pos  # [B, T, S]
+    if tree_mask is not None:
+        mask = mask & tree_mask
     if isinstance(sliding_window, torch.Tensor):
         win = sliding_window.long()
-        mask &= (win <= 0) | (key_idx[None, None, :] > q_pos - win)
+        mask &= (win <= 0) | (key_pos > q_pos - win)
     elif sliding_window:
-        mask &= key_idx[None, None, :] > q_pos - int(sliding_window)
+        mask &= key_pos > q_pos - int(sliding_window)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
 
     probs = torch.softmax(scores, dim=-1)

@@ -16,7 +16,8 @@ tree clause (``tree_chain`` [B, T], ``tree_scratch`` [] or [B],
 ``tree_fanout``). The result is [B, T, Hq, Dh] in q's dtype.
 
 A wrapper launches its kernel for CUDA tensors and raises on anything the
-kernel does not take; only CPU tensors go to its ``_plain`` version, which
+kernel does not take; it counts its launches in ``launches`` and, of those,
+the ones with the tree clause (fanout > 1) in ``tree_launches``; only CPU tensors go to its ``_plain`` version, which
 computes the kernel's function as one masked softmax: K2 rounds p to the
 pool's dtype before PV; K3 dequantizes k and v in fp32 and keeps p in fp32
 (the TPU kernel's numerics, not the gathered fallback's, which dequantizes
@@ -172,6 +173,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, q_positions, *, q_heads_per
                          f"{q.dtype}")
     out = _launch(q, k_pool, v_pool, None, None, table, q_positions, **kw)
     paged_decode_attention.launches += 1
+    paged_decode_attention.tree_launches += int(tree_fanout or 0) > 1
     return out
 
 
@@ -199,11 +201,13 @@ def paged_decode_attention_q8(q, k_pool, k_scale, v_pool, v_scale, table, q_posi
                              f"{tuple(k_pool.shape[:3])} on {q.device}")
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, table, q_positions, **kw)
     paged_decode_attention_q8.launches += 1
+    paged_decode_attention_q8.tree_launches += int(tree_fanout or 0) > 1
     return out
 
 
-paged_decode_attention.launches = 0
-paged_decode_attention_q8.launches = 0
+# kernel launches, and of those the ones that ran the tree clause
+paged_decode_attention.launches = paged_decode_attention.tree_launches = 0
+paged_decode_attention_q8.launches = paged_decode_attention_q8.tree_launches = 0
 
 
 def _all_cpu(*ts) -> bool:

@@ -26,8 +26,10 @@ The two are equivalent because the JAX package always updates every copy
 of the table together. The JAX insert parks the rows it does not insert at
 ``trash_start``; the port's insert runs only the inserted rows, so only the
 geometry (``paged_geometry``, kept equal to the JAX package's) still
-reserves that region. ``tree_compact`` (tree speculation's chain
-compaction) comes with its only caller, the tree round.
+reserves that region. ``tree_compact`` moves tree speculation's winning
+chain (generation/tree.py) into the contiguous frontier, in place: a
+W-slot gather into a new tensor, then a scatter, so the overlapping source
+and destination never mix.
 """
 
 from __future__ import annotations
@@ -55,6 +57,23 @@ def _page_slots(table: torch.Tensor, write_pos: Union[int, torch.Tensor], t: int
     pos = pos.expand(b, t)
     lp = (pos // page).clamp(max=maxp - 1)
     return table.gather(1, lp).long(), pos % page
+
+
+def _move_slots(bufs, lead: int, table: torch.Tensor, start: torch.Tensor,
+                idx: torch.Tensor, page: int) -> None:
+    """In each of ``bufs`` ([(L,) P, Hkv, page(, Dh)], ``lead`` = 1 when
+    stacked over layers) copy the logical slots ``idx`` [B, W] to
+    ``start + arange(W)`` [B] through ``table``: every source is gathered
+    before any destination is written."""
+    w = idx.shape[1]
+    lp = (idx.long() // page).clamp(max=table.shape[1] - 1)
+    src = (slice(None),) * lead + (table.gather(1, lp).long(), slice(None),
+                                   idx.long() % page)
+    pidx, poff = _page_slots(table, start, w, page)
+    dst = (slice(None),) * lead + (pidx, slice(None), poff)
+    blocks = [buf[src] for buf in bufs]  # advanced indexing copies
+    for buf, blk in zip(bufs, blocks):
+        buf[dst] = blk
 
 
 @dataclasses.dataclass
@@ -93,6 +112,14 @@ class PagedKV:
         through the table, in place (per-layer view)."""
         pidx, poff = _page_slots(self.table, write_pos, new.shape[1], self.page_size)
         self.pool[pidx, :, poff] = new.to(self.pool.dtype)
+        return self
+
+    def tree_compact(self, start: torch.Tensor, idx: torch.Tensor) -> "PagedKV":
+        """Move the logical slots ``idx`` [B, W] to ``start .. start + W - 1``
+        ([B]) through the table, in place, stacked or per layer (tree
+        speculation's winning-chain compaction)."""
+        _move_slots((self.pool,), self.pool.dim() - 4, self.table, start, idx,
+                    self.page_size)
         return self
 
     def gather_view(self, dtype=None) -> torch.Tensor:
@@ -141,6 +168,13 @@ class PagedQuantKV:
         pidx, poff = _page_slots(self.table, write_pos, new.shape[1], self.page_size)
         self.pool[pidx, :, poff] = q
         self.scale[pidx, :, poff] = scale.to(self.scale.dtype)
+        return self
+
+    def tree_compact(self, start: torch.Tensor, idx: torch.Tensor) -> "PagedQuantKV":
+        """``PagedKV.tree_compact`` over the int8 pool: the raw int8 values
+        and their scales move, with no requantization."""
+        _move_slots((self.pool, self.scale), self.pool.dim() - 4, self.table, start, idx,
+                    self.page_size)
         return self
 
     def gather_view(self, dtype=None) -> torch.Tensor:

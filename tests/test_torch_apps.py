@@ -296,9 +296,23 @@ def test_strategies_equal_the_engine(generators):
         res = strategy.generate_token_ids(tgen.engine, ids, eos, cfg)
         assert res.predicted_tokens == tgen.generate(
             PROMPTS[1], cfg).generation_strategy_result.predicted_tokens
-    with pytest.raises(NotImplementedError):
-        PromptLookupGenerationStrategy().generate_token_ids(
-            tgen.engine, ids, eos, GenerationConfig(max_steps=4, sample=False))
+    # prompt lookup (which raised before this port carried it) equals the
+    # engine and the JAX package's class, and reports its acceptance
+    from layerskip_tpu.generation.strategies import (
+        PromptLookupGenerationStrategy as JPromptLookupGenerationStrategy,
+    )
+
+    jgen = generators[0]
+    cfg = GenerationConfig(max_steps=STEPS, sample=False, num_speculations=3, pld_ngram=1)
+    res = PromptLookupGenerationStrategy().generate_token_ids(tgen.engine, ids, eos, cfg)
+    want = JPromptLookupGenerationStrategy().generate_token_ids(
+        jgen.engine, ids, eos, JGenerationConfig(max_steps=STEPS, sample=False,
+                                                 num_speculations=3, pld_ngram=1),
+        jax.random.PRNGKey(0))
+    assert res.predicted_tokens == want.predicted_tokens
+    assert res.acceptance_rate == want.acceptance_rate is not None
+    assert res.predicted_tokens == tgen.generate(PROMPTS[1], dataclasses.replace(
+        cfg, generation_strategy="prompt_lookup")).generation_strategy_result.predicted_tokens
 
 
 # --- streaming ------------------------------------------------------------------
@@ -332,13 +346,27 @@ def test_stream_generate_equals_generate_and_jax_rounds(generators):
 
 
 def test_stream_generate_refuses_what_generate_refuses(generators):
-    _, tgen = generators
-    for cfg, err in ((GenerationConfig(generation_strategy="autoregressive"), ValueError),
-                     (GenerationConfig(generation_strategy="prompt_lookup"),
-                      NotImplementedError),
-                     (GenerationConfig(generation_strategy="hybrid"), NotImplementedError)):
-        with pytest.raises(err):
+    """AR, and tree or hybrid drafting with adaptive drafting, are refused;
+    prompt lookup and hybrid (refused before this port carried them) stream
+    the JAX package's rounds."""
+    jgen, tgen = generators
+    spec = STRATEGIES["spec"]
+    for cfg in (GenerationConfig(generation_strategy="autoregressive"),
+                GenerationConfig(**spec, spec_tree_width=2, draft_exit_prob=0.5),
+                GenerationConfig(**dict(spec, generation_strategy="hybrid"),
+                                 draft_exit_prob=0.5)):
+        with pytest.raises(ValueError):
             tgen.engine.stream_generate([3, 4, 5], cfg)
+    ids, eos = tgen._encode(PROMPTS[0]), tgen.eos_ids
+    for strategy in ("prompt_lookup", "hybrid"):
+        kw = dict(spec, generation_strategy=strategy, pld_ngram=1, max_steps=STEPS,
+                  sample=False)
+        trounds, jrounds = [], []
+        tgen.engine.stream_generate(ids, GenerationConfig(**kw), None, eos,
+                                    on_round=lambda d, a: trounds.append((d, a)))
+        jgen.engine.stream_generate(ids, JGenerationConfig(**kw), jax.random.PRNGKey(0), eos,
+                                    on_round=lambda d, a: jrounds.append((d, a)))
+        assert trounds == jrounds and len(trounds) > 1, strategy
 
 
 # --- the CLI apps ---------------------------------------------------------------

@@ -46,6 +46,23 @@ def test_bench_completes_with_one_valid_line(tmp_path):
     assert not sidecar.exists()
 
 
+@pytest.mark.parametrize("flags,metric", [
+    (["--tree-width", "2"], "selfspec_speedup_vs_ar_tiny_tree2_exit2_spec6"),
+    (["--draft-exit-prob", "0.5"], "selfspec_speedup_vs_ar_tiny_exit2_spec6"),
+])
+def test_bench_strategy_flags(tmp_path, flags, metric):
+    """``--tree-width`` and ``--draft-exit-prob`` carry the JAX bench's
+    meaning and metric name: a tree point names its width."""
+    sidecar = tmp_path / "partial.json"
+    proc = subprocess.run(CMD + ["--no-curve", "--max-steps", "16", "--sidecar", str(sidecar)]
+                          + flags, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                          timeout=300, cwd=str(tmp_path), env=_env())
+    assert proc.returncode == 0
+    d = _one_line(proc.stdout)
+    assert d["metric"] == metric and 0 < d["acceptance"] <= 1
+    assert not sidecar.exists()
+
+
 def test_bench_sigterm_prints_the_line_so_far(tmp_path):
     sidecar = tmp_path / "partial.json"
     proc = subprocess.Popen(CMD + ["--max-steps", "32", "--sidecar", str(sidecar)],

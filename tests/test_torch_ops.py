@@ -165,11 +165,27 @@ def test_gqa_attention_matches_jax(case, scalar_past):
 
 
 def test_gqa_attention_tree_raises():
-    q = torch.zeros((1, 2, 2, 64))
-    kv = torch.zeros((1, 4, 1, 64))
-    with pytest.raises(NotImplementedError):
-        tattn.gqa_attention(q, kv, kv, torch.arange(2), q_heads_per_kv=2,
-                            tree_meta=(torch.zeros(1, 2), 0, 2))
+    """The tree clause, which raised before tree speculation was ported,
+    now runs and equals the JAX package's: a verify window (the root, then
+    two depths of two chains past per-row scratch starts), plain and with a
+    window (tests/test_torch_tree.py holds the rest)."""
+    rng = np.random.default_rng(3)
+    b, hkv, g, dh, s = 2, 1, 2, 64, 24
+    ctx = np.array([11, 6])
+    qpos = ctx[:, None] + np.array([0, 1, 1, 2, 2])
+    chain = np.tile(np.array([-1, 0, 1, 0, 1], np.int32), (b, 1))
+    q = rng.standard_normal((b, 5, hkv * g, dh)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, dh)).astype(np.float32)
+    for window in (0, 3):
+        want = jattn.gqa_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(qpos, jnp.int32),
+            q_heads_per_kv=g, sliding_window=window,
+            tree_meta=(jnp.asarray(chain), jnp.asarray(ctx + 1, jnp.int32), 2))
+        got = tattn.gqa_attention(_t(q), _t(k), _t(v), _t(qpos), q_heads_per_kv=g,
+                                  sliding_window=window,
+                                  tree_meta=(_t(chain), _t(ctx + 1), 2))
+        _close(got, want)
 
 
 # ------------------------------------------ flash prefill (plain version)

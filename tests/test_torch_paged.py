@@ -644,10 +644,21 @@ def test_sampled_stream_depends_only_on_the_request(engines):
 
 
 def test_unported_options_raise(engines):
-    _, te = engines
-    for kw in (dict(generation_strategy="prompt_lookup"), dict(spec_tree_width=2),
-               dict(draft_exit_prob=0.5)):
-        with pytest.raises(NotImplementedError):
-            te.continuous_session(dataclasses.replace(_gen(GenerationConfig), **kw), 2, 16)
+    """Paged sessions with prompt lookup, tree speculation and adaptive
+    drafting, which raised before this port carried them, serve the JAX
+    session's streams and counters; tree or hybrid with adaptive drafting
+    and a prefix cache without paging stay ValueErrors."""
+    je, te = engines
+    paged = dict(paged_pool_pages=12, page_size=16)
+    for kw in (dict(generation_strategy="prompt_lookup", pld_ngram=1),
+               dict(spec_tree_width=2), dict(draft_exit_prob=0.5)):
+        got = _drive(te.continuous_session(_gen(GenerationConfig, **kw), 2, 16, EOS, **paged))
+        want = _drive(je.continuous_session(_gen(JGenerationConfig, **kw), 2, 16, EOS,
+                                            **paged))
+        assert got == want, kw
+    for kw in (dict(spec_tree_width=2, draft_exit_prob=0.5),
+               dict(generation_strategy="hybrid", draft_exit_prob=0.5)):
+        with pytest.raises(ValueError):
+            te.continuous_session(_gen(GenerationConfig, **kw), 2, 16, **paged)
     with pytest.raises(ValueError):
         te.continuous_session(_gen(GenerationConfig), 2, 16, prefix_cache=True)
