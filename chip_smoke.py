@@ -15,7 +15,9 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      2048-token prompts with the 7B and the Llama-3.2-1B heads, K2/K3 also
      at ~2000-key contexts (B 4, and B 1 with one live slot), K4-K7 also at
      M = 2048 (a 2000-token prompt's prefill), K4/K7 also on the
-     Llama-3.2-1B wk at M = 1;
+     Llama-3.2-1B wk at M = 1; with a softcap (Gemma) the library call is
+     a compiled ``flex_attention`` with that score_mod and the same mask
+     (SDPA has no softcap), its error against the plain version logged;
   4. exact greedy AR == self-spec in fp32 at a small width, through the
      kernels: the dense base (K1, 4 launches per prefill), int8 and int4
      bases, int8 and int4 drafters over the dense base (== dense AR), and
@@ -66,12 +68,37 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      request its solo stream) up to its first gap within the bf16 paths'
      measured noise, every token within that noise of the teacher-forced
      argmax, and the tree exact on the same weights in fp32;
+  10. the model families and MoE: (a) one narrow fp32 model (Dh 64) of each
+     of Qwen2, Qwen3, Mistral, Gemma, Gemma-2, Gemma-3, Phi-3 (loaded from
+     its fused names), Mixtral and Qwen3-MoE, with greedy AR == spec ==
+     tree (k 2) exactly after a prompt longer than the 32-token window, a
+     4-slot paged session == solo over the fp32 (K2) and int8 (K3) pools,
+     and int8 (K4/K5) and int4 (K6/K7) bases AR == spec, each kernel
+     launched; (b) Gemma-2-2B at full width in bf16
+     (``random:gemma2-2b?tail_eps=0&tail_from=8``, exit 8, W 6): AR and
+     spec at batch 1 (tok/s, acceptance, launches per token; == up to the
+     first near tie, and exactly in fp32), the time to first token of a
+     200- and a 6000-token prompt (past the 4096 window), the int8 base
+     (K4/K5 at K 2304), and a 4-slot paged session over the bf16 and int8
+     pools with a 4200-token prompt (K2/K3 at Dh 256 under the window) ==
+     solo up to the first near tie; (c) moe-3b at full width in bf16
+     (``random:moe-3b?tail_eps=0&tail_from=4``): AR and spec at batch 1
+     with the MoE path of every call counted (few in decode and drafts,
+     dense in verify windows; exact in fp32), the grouped path at a
+     2048-token prefill, and a 4-slot paged session, == solo on the fp32
+     copy up to the first fp32 near tie (at least two tokens a request)
+     and timed in bf16. Phase 3
+     holds K1 and K2/K3 at Gemma-2-2B's shapes (Hq 8, Hkv 4, Dh 256,
+     softcap 50, scale 1/16, window 4096; K1 at 256, 2048 and 6144-token
+     prompts, K2/K3 at ~400 and ~5000 keys), K4-K7 at its products (K
+     2304 and 9216; M 1, 7 and 256) and K1 at moe-3b's heads (Hkv 8, G 2,
+     Dh 128; T 256 and 2048);
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
-Every kernel count is set to 0 just before each run of phases 5 to 9 and
+Every kernel count is set to 0 just before each run of phases 5 to 10 and
 read just after it (K2's and K3's tree-clause launches too); every K1 and
 K4-K7 launch of the bf16 runs must have taken the tensor-core route, and
-every one of phase 4, phase 8's fp32 checkpoint and phase 9 (a) (fp32) the
-CUDA-core route.
+every one of phase 4, phase 8's fp32 checkpoint, phase 9 (a) and phase 10
+(a) (fp32) the CUDA-core route.
 
 Without a CUDA device, or outside a checkout of the repository, it fails
 before printing anything.
@@ -199,6 +226,9 @@ def flash_bound(b, t, s, past, hq, hkv, dh, window, dtype):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
+G2B_SCALE, G2B_SOFTCAP, G2B_WINDOW = 256.0 ** -0.5, 50.0, 4096  # Gemma-2-2B's score math
+
+
 def flash_cases(full_cache_len):
     # (name, B, T, S, past, Hkv, G, Dh, window, scale, softcap, dtype, tol)
     # fp32 tolerances are the TPU kernel gate's (scripts/kernel_gate.py);
@@ -220,6 +250,17 @@ def flash_cases(full_cache_len):
          bf16, 0.02),
         ("flash_prefill_1b_long_bf16", 1, 2048, 2560, 0, 8, 4, 64, 0, 0.0, 0.0,
          bf16, 0.02),
+        # moe-3b's heads (Hkv 8, G 2, Dh 128) at phase 10 (c)'s 200- and
+        # 2000-token prefills
+        ("flash_prefill_moe3b_bf16", 1, 256, full_cache_len, 0, 8, 2, 128, 0, 0.0, 0.0,
+         bf16, 0.02),
+        ("flash_prefill_moe3b_long_bf16", 1, 2048, 2560, 0, 8, 2, 128, 0, 0.0, 0.0,
+         bf16, 0.02),
+    ] + [  # Gemma-2-2B's heads and score math at its prefills (phase 10 (b)): global
+        # layers (window 0) and sliding ones (4096); S is the engine's cache
+        (f"flash_prefill_g2b_t{t}{'_win' if win else ''}_bf16", 1, t, s, 0, 4, 2, 256, win,
+         G2B_SCALE, G2B_SOFTCAP, bf16, 0.02)
+        for t, s in ((256, full_cache_len), (2048, 2560), (6144, 6656)) for win in (0, 4096)
     ]
 
 
@@ -250,30 +291,31 @@ def check_flash_prefill(full_cache_len):
         finite = bool(torch.isfinite(got).all())
         ms = time_ms(lambda: flash_prefill_attention(q, k, v, past, **kw))
         plain_ms = time_ms(lambda: flash_prefill_attention_plain(q, k, v, past, **kw), 5)
-        library_ms = None
-        if not cap:
-            qt = q.transpose(1, 2)
-            sc = scale or dh ** -0.5
-            if past == 0 and window == 0:
-                kt, vt = k[:, :t].transpose(1, 2), v[:, :t].transpose(1, 2)
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True)
-            else:
-                qp = past + torch.arange(t, device="cuda")[:, None]
-                kp = torch.arange(s, device="cuda")[None, :]
-                mask = (kp <= qp) & ((kp > qp - window) if window else True)
-                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, attn_mask=mask, scale=sc, enable_gqa=True)
-            library_ms = time_ms(lib)
+        # the library call: SDPA, or with a softcap (which SDPA lacks) flex_attention
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sc = scale or dh ** -0.5
+        qp = past + torch.arange(t, device="cuda")[:, None]
+        kp = torch.arange(s, device="cuda")[None, :]
+        mask = (kp <= qp) & ((kp > qp - window) if window else True)
+        if cap:
+            lib, lib_err = flex_call(qt, kt, vt, mask, sc, cap, want)
+        elif past == 0 and window == 0:
+            lib, lib_err = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt[:, :, :t], vt[:, :, :t], is_causal=True, scale=sc,
+                enable_gqa=True), None
+        else:
+            lib, lib_err = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, scale=sc, enable_gqa=True), None
+        library_ms = time_ms(lib)
         bound_ms, bound_by = flash_bound(b, t, s, past, hq, hkv, dh, window, dtype)
         passed = finite and err <= tol
         ok &= passed
         results[name] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_err=lib_err)
         log(f"[kernel] {name}: {'PASS' if passed else 'FAIL'} max_abs_err={err:.3g} "
-            f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-            f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
+            f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}"
+            f"{f' (flex_attention, max_abs_err {lib_err:.3g})' if cap else ''} "
             f"bound_ms={bound_ms:.5f} ({bound_by}) shape=B{b} T{t} S{s} past{past} "
             f"Hq{hq} Hkv{hkv} Dh{dh} win{window} {str(dtype).split('.')[-1]}")
     return ok, results
@@ -306,7 +348,10 @@ def quant_cases():
     [4096, 11008] and [11008, 4096]) at M = 1 (AR step), 7 (verify window),
     256 (a 200-token prefill) and 2048 (a 2000-token prefill) in bf16, with
     N(0, 0.02) weights, and the Llama-3.2-1B wk [N, K] = [512, 2048] at
-    M = 1; tol None there means one bf16 ulp (2^-7) of the largest output:
+    M = 1, and Gemma-2-2B's (wq and wk [N, K] = [2048, 2304] and [1024,
+    2304]; wo, w_gate and w_down [K, N] = [2048, 2304], [2304, 9216] and
+    [9216, 2304]) at M = 1, 7 and 256; tol None there means one bf16 ulp
+    (2^-7) of the largest output:
     kernel and plain version round the same fp32 sum, taken in another
     order, once."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -323,6 +368,13 @@ def quant_cases():
         for kern in ("quant_matmul", "int4_matmul"):
             for layer, k, n in KN_LAYERS:
                 cases.append((f"{kern}_7b_{layer}_m{m}", kern, m, k, n, bf16, None))
+    for m in (1, 7, 256):  # Gemma-2-2B's products (phase 10 (b)'s int8 base)
+        for kern in ("quant_matmul_t", "int4_matmul_t"):
+            for layer, k, n in G2B_NK_LAYERS:
+                cases.append((f"{kern}_g2b_{layer}_m{m}", kern, m, k, n, bf16, None))
+        for kern in ("quant_matmul", "int4_matmul"):
+            for layer, k, n in G2B_KN_LAYERS:
+                cases.append((f"{kern}_g2b_{layer}_m{m}", kern, m, k, n, bf16, None))
     return cases
 
 
@@ -334,6 +386,10 @@ KN_CALLS = {"wo": 1, "wgate": 2, "wdown": 1}
 # layer) and the Llama-3.2-1B wk (and wv), whose N of 512 gives few blocks
 NK_LAYERS = (("7b_wq", 4096, 4096), ("1b_wk", 2048, 512))
 NK_CALLS = 3
+# Gemma-2-2B's (D 2304, Hq*Dh 2048, Hkv*Dh 1024, F 9216): K 2304 is 36
+# tiles of 64 and 18 int4 groups of 128
+G2B_NK_LAYERS = (("wq", 2304, 2048), ("wk", 2304, 1024))  # wv has wk's shape
+G2B_KN_LAYERS = (("wo", 2048, 2304), ("wgate", 2304, 9216), ("wdown", 9216, 2304))
 
 
 def check_quant_kernels():
@@ -391,12 +447,15 @@ def paged_cases():
     T 1 and 7, bf16 and int8 pools; tol one bf16 rounding of an output
     below 2, 0.02), the same at the context of phase 5's 2000-token
     prompts (rows of 1904-2047 keys; B 4, and B 1 with one live slot), and
-    phase 9's tree verify at those shapes (W 6 depths of fanout 2: T 13)."""
+    phase 9's tree verify at those shapes (W 6 depths of fanout 2: T 13),
+    and Gemma-2-2B's (B 4, Hkv 4, G 2, Dh 256, page 128, scale 1/16, softcap
+    50, window 4096; T 1, 7 and the tree's 13; at ~400 and ~5000 keys)."""
     f32, bf16 = torch.float32, torch.bfloat16
     gate = (150, 90)
     g33, t62 = (3, 3), (6, 2)  # the gate's tree (T 10), phase 9's 7B tree (T 13)
     ctx7b = (391, 350, 300, 377)
     long7b = (2046, 1987, 1903, 2011)
+    g2b_long = (5046, 4987, 4903, 5011)
     return [
         ("paged_decode_t1", 2, 1, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, None, 5e-3),
         ("paged_decode_t7", 2, 7, 2, 2, 128, 128, gate, f32, False, 0, 0.0, 0.0, None, 5e-3),
@@ -435,15 +494,26 @@ def paged_cases():
          0.0, None, 0.02),
         ("paged_decode_7b_b1_long_t1_bf16", 1, 1, 1, 32, 128, 128, long7b[:1], bf16, False, 0,
          0.0, 0.0, None, 0.02),
+    ] + [  # Gemma-2-2B's heads and score math under its window (phase 10 (b)): ~400
+        # keys (the window cuts nothing) and ~5000 (it cuts ~900), T 1 and 7 and
+        # the tree's 13
+        (f"paged_decode{'_q8' if quant else ''}_g2b{'_long' if long else ''}"
+         f"{'_tree' if tree else ''}_t{t}_bf16", 4, t, 2, 4, 256, 128,
+         g2b_long if long else ctx7b, bf16, quant, G2B_WINDOW, G2B_SCALE, G2B_SOFTCAP,
+         t62 if tree else None, 0.02)
+        for long in (False, True) for t, tree in ((1, False), (7, False), (13, True))
+        for quant in (False, True)
     ]
 
 
 def paged_capacity(rows):
     """Keys per slot of a paged case: the gate's 256, phase 7's slots (392)
-    for the 7B decode shapes, 2048 at the long context."""
+    for the 7B decode shapes, 2048 at the long context, 5120 past it."""
     if max(rows) < 256:
         return 256
-    return 392 if max(rows) < 392 else 2048
+    if max(rows) < 392:
+        return 392
+    return 2048 if max(rows) < 2048 else 5120
 
 
 def paged_case_tensors(b, t, g, hkv, dh, page, rows, dtype, quant, tree, gen, cap):
@@ -533,11 +603,13 @@ def paged_calls(q, k, v, pos, kw):
             lambda: pd.paged_decode_attention_plain(q, k.pool, v.pool, k.table, pos, **kw))
 
 
-def paged_sdpa_call(q, k, v, pos, window, scale, tree_kw):
-    """One ``scaled_dot_product_attention`` call over a contiguous view of
-    the pair gathered (and dequantized to q's dtype) ahead of time, with an
-    explicit boolean mask of the causal, window and tree clauses: the
-    library yardstick of K2/K3."""
+def paged_library_call(q, k, v, pos, window, scale, cap, tree_kw, want):
+    """(callable, its max error against ``want`` or None): one
+    ``scaled_dot_product_attention`` call, or with a softcap one
+    ``flex_attention`` call (``flex_call``), over a contiguous view of the
+    pair gathered (and dequantized to q's dtype) ahead of time, with an
+    explicit mask of the causal, window and tree clauses: the library
+    yardstick of K2/K3."""
     import torch.nn.functional as F
 
     from layerskip_tpu_torch.ops.cuda.paged_decode import _rows, _visible
@@ -546,11 +618,53 @@ def paged_sdpa_call(q, k, v, pos, window, scale, tree_kw):
     q_pos, chain, scratch, fanout, window = _rows(
         q, pos, tree_kw.get("tree_chain"), tree_kw.get("tree_scratch"),
         tree_kw.get("tree_fanout", 0), window)
-    mask = _visible(q_pos.long(), kd.shape[2], window, chain, scratch, fanout)
-    qt = q.transpose(1, 2)
+    mask = _visible(q_pos.long(), kd.shape[2], window, chain, scratch, fanout)  # [B, T, S]
+    qt, sc = q.transpose(1, 2), scale or q.shape[-1] ** -0.5
+    if cap:
+        return flex_call(qt, kd, vd, mask, sc, cap, want)
     return lambda: F.scaled_dot_product_attention(
-        qt, kd, vd, attn_mask=mask[:, None], scale=scale or q.shape[-1] ** -0.5,
-        enable_gqa=True)
+        qt, kd, vd, attn_mask=mask[:, None], scale=sc, enable_gqa=True), None
+
+
+_FLEX = {"fn": None, "compile_s": 0.0, "score_mods": {}}
+
+
+def flex_call(q, k, v, mask, scale, cap, want):
+    """(callable, its max error against ``want`` [B, T, H, Dh]): the
+    library call of an attention with a softcap, which SDPA lacks: one
+    compiled ``flex_attention`` over q [B, Hq, T, Dh] and k, v [B, Hkv, S,
+    Dh] with the score_mod ``cap * tanh(s / cap)`` and a block mask of
+    ``mask`` ([T, S] or [B, T, S]), both made ahead of time. Compiled once
+    per shape (its compile time is logged, outside the timings)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    if _FLEX["fn"] is None:
+        for limit in ("recompile_limit", "cache_size_limit"):  # one compile per shape
+            if hasattr(torch._dynamo.config, limit):
+                setattr(torch._dynamo.config, limit, 64)
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    if cap not in _FLEX["score_mods"]:
+        def softcap(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+        _FLEX["score_mods"][cap] = softcap
+    if mask.dim() == 2:
+        block = create_block_mask(lambda b, h, qi, ki: mask[qi, ki], None, None,
+                                  *mask.shape, device="cuda")
+    else:
+        block = create_block_mask(lambda b, h, qi, ki: mask[b, qi, ki], mask.shape[0], None,
+                                  *mask.shape[1:], device="cuda")
+    fn, score_mod = _FLEX["fn"], _FLEX["score_mods"][cap]
+
+    def call():
+        return fn(q, k, v, score_mod=score_mod, block_mask=block, scale=scale,
+                  enable_gqa=True)
+
+    t0 = time.time()
+    got = call()
+    torch.cuda.synchronize()
+    _FLEX["compile_s"] += time.time() - t0
+    err = (got.transpose(1, 2).float() - want.float()).abs().max().item()
+    return call, err
 
 
 def check_paged_kernels():
@@ -592,17 +706,17 @@ def check_paged_kernels():
         passed &= err <= tol
         ms = time_cold_ms(fn)
         plain_ms = time_cold_ms(plain, 5)
-        library_ms = None
-        if not cap:  # SDPA has no softcap
-            library_ms = time_cold_ms(paged_sdpa_call(q, k, v, pos, window, scale, tree_kw))
+        lib, lib_err = paged_library_call(q, k, v, pos, window, scale, cap, tree_kw, want)
+        library_ms = time_cold_ms(lib)
         bound_ms, bound_by = paged_bound(q, hkv, k.max_pages * page, pos, window, tree_kw,
                                          quant)
         ok &= passed
         results[name] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_err=lib_err)
         log(f"[kernel] {name}: {'PASS' if passed else 'FAIL'} max_abs_err={err:.3g} "
-            f"tol={tol}{extra} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-            f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
+            f"tol={tol}{extra} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f}"
+            f"{f' (flex_attention, max_abs_err {lib_err:.3g})' if cap else ''} "
             f"bound_ms={bound_ms:.5f} ({bound_by}) shape=B{b} T{t} Hq{hkv * g} Hkv{hkv} "
             f"Dh{dh} page{page} rows{rows} win{window} tree(depths, fanout)={tree} "
             f"{'int8' if quant else str(dtype).split('.')[-1]} pool, q "
@@ -788,6 +902,10 @@ def first_diff(a, b) -> int:
 
 
 NEAR_TIE = 0.05  # a top-2 logit gap below this is a near tie in bf16
+# and in fp32, where another path or batch moves the logits only by fp32
+# rounding (an MoE layer's expert products summed in another order; the
+# fp32 solo streams' shortfall, logged, measures it)
+FP32_TIE = 1e-3
 
 
 def teacher_forced(params, cfg, prompt, toks, kv_quant=False):
@@ -803,12 +921,19 @@ def teacher_forced(params, cfg, prompt, toks, kv_quant=False):
         return llama.forward(params, cfg, ids, cache, 0).logits[0, len(prompt) - 1:-1]
 
 
+def same_tensor(a, b) -> bool:
+    """Both absent (a family's optional field), or equal tensors."""
+    return a is None and b is None or (a is not None and b is not None
+                                       and torch.equal(a, b))
+
+
 def fp32_model(params, cfg):
     """The same weights in fp32 (bf16 to fp32 is exact) and an fp32 config:
     a forward free of bf16 rounding in its activations."""
     layers = dataclasses.replace(params.layers, **{
         f.name: getattr(params.layers, f.name).float()
-        for f in dataclasses.fields(params.layers)})
+        for f in dataclasses.fields(params.layers)
+        if getattr(params.layers, f.name) is not None})
     lm_head = None if params.lm_head is None else params.lm_head.float()
     return (dataclasses.replace(params, embed=params.embed.float(), layers=layers,
                                 final_norm=params.final_norm.float(), lm_head=lm_head),
@@ -1285,7 +1410,7 @@ def entry_fp32_exact(card, tmp):
     save_params(params, ckpt, cfg)
     loaded, lcfg, tok = load_model_and_tokenizer(ckpt, dtype=torch.float32, device="cuda")
     same = lcfg.dtype == torch.float32 and all(
-        torch.equal(getattr(loaded.layers, f.name), getattr(params.layers, f.name))
+        same_tensor(getattr(loaded.layers, f.name), getattr(params.layers, f.name))
         for f in dataclasses.fields(params.layers)) and all(
         torch.equal(getattr(loaded, f), getattr(params, f))
         for f in ("embed", "final_norm", "lm_head"))
@@ -1889,6 +2014,495 @@ def drafting_fp32_full_width(params32, cfg32, prompt, tree_kw):
     return ok, dict(tree_equal_to_ar=tree == ar, session_equal_to_solo=sum(same))
 
 
+# ------------------------------------------------------------ phase 10
+
+
+_GEMMA = dict(hidden_act="gelu_pytorch_tanh", rms_norm_offset=True, scale_embeddings=True,
+              tie_word_embeddings=True)
+FAMILIES = {  # phase 10 (a): each family's features at phase 4's narrow fp32 shape
+    "qwen2": dict(attention_bias=True),
+    "qwen3": dict(qk_norm=True, tie_word_embeddings=True),
+    "mistral": dict(sliding_window=32),
+    "gemma": dict(_GEMMA),
+    # Gemma-2/3 untied: at this width a tied head makes their greedy streams
+    # repeat one token (their post-normed sublayers swamp the token's own
+    # embedding, or, scaled up, the tied head copies it)
+    "gemma2": dict(_GEMMA, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                   query_pre_attn_scalar=64.0, sliding_window=32, sliding_window_pattern=2,
+                   post_norms=True, tie_word_embeddings=False),
+    "gemma3": dict(_GEMMA, num_hidden_layers=6, qk_norm=True, post_norms=True,
+                   query_pre_attn_scalar=64.0, sliding_window=32, sliding_window_pattern=6,
+                   rope_theta=1e6, rope_local_theta=1e4, tie_word_embeddings=False),
+    "phi3": dict(),  # Llama's block, loaded from the fused qkv_proj / gate_up_proj names
+    "mixtral": dict(num_local_experts=4, num_experts_per_tok=2),
+    "qwen3moe": dict(qk_norm=True, tie_word_embeddings=True, num_local_experts=8,
+                     num_experts_per_tok=2, norm_topk_prob=False),
+}
+
+
+FAMILY_STEPS = 24
+
+
+def family_model(name):
+    """(cfg, params) of one family at phase 4's narrow fp32 shape (Dh 64),
+    weights at std 0.15 (biases 0.1, routers 0.15, an untied head drawn on
+    its own) so streams vary; Phi-3's come back through its fused
+    checkpoint names."""
+    from layerskip_tpu_torch.config import tiny_config
+    from layerskip_tpu_torch.models.params import init_params, params_from_flat_dict
+
+    cfg = tiny_config(**{**dict(num_hidden_layers=4, hidden_size=256, num_attention_heads=4,
+                                num_key_value_heads=2, intermediate_size=512,
+                                vocab_size=512, max_position_embeddings=1024,
+                                dtype=torch.float32), **FAMILIES[name]})
+    params = init_params(cfg, seed=11, device="cuda")
+    layers = params.layers
+    for field in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_router"):
+        if getattr(layers, field) is not None:
+            getattr(layers, field).mul_(7.5)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for field in ("bq", "bk", "bv"):
+        if getattr(layers, field) is not None:
+            getattr(layers, field).normal_(0.0, 0.1, generator=gen)
+    # Gemma scales embeddings by sqrt(D) = 16: std 0.04 keeps their RMS near
+    # the other families' 0.3
+    params.embed.mul_(2.0 if cfg.scale_embeddings else 15.0)
+    if params.lm_head is not None:  # a head of its own, not the embedding's copy
+        params.lm_head = torch.randn(params.lm_head.shape, generator=gen,
+                                     device="cuda") * 0.15
+    if name == "phi3":
+        flat = {"model.embed_tokens.weight": params.embed, "model.norm.weight":
+                params.final_norm, "lm_head.weight": params.lm_head.T}
+        for i in range(cfg.num_hidden_layers):
+            pre = f"model.layers.{i}."
+            flat[pre + "input_layernorm.weight"] = layers.attn_norm[i]
+            flat[pre + "post_attention_layernorm.weight"] = layers.mlp_norm[i]
+            flat[pre + "self_attn.qkv_proj.weight"] = torch.cat(
+                [layers.wq[i], layers.wk[i], layers.wv[i]])
+            flat[pre + "self_attn.o_proj.weight"] = layers.wo[i].T
+            flat[pre + "mlp.gate_up_proj.weight"] = torch.cat(
+                [layers.w_gate[i].T, layers.w_up[i].T])
+            flat[pre + "mlp.down_proj.weight"] = layers.w_down[i].T
+        loaded = params_from_flat_dict(flat, cfg, device="cuda")
+        assert all(same_tensor(getattr(loaded.layers, f.name), getattr(layers, f.name))
+                   for f in dataclasses.fields(layers)), "phi3 fused names"
+        params = loaded
+    return cfg, params
+
+
+def same_stream(params, cfg, prompt, toks, solo, kv_quant) -> bool:
+    """A served stream against its solo one: equal, for a dense model. An
+    MoE model's MLP takes another path when the batch changes (``few``
+    alone, ``dense`` beside three other rows), whose fp32 sums round
+    differently, so its stream is held equal up to the solo stream's first
+    top-2 gap under NEAR_TIE (where such a rounding can flip the choice)."""
+    if toks == solo or not cfg.is_moe:
+        return toks == solo
+    tie = near_tie(params, cfg, prompt, solo, kv_quant)[0]
+    agree = first_diff(toks, solo)
+    log(f"[family fp32]   MoE session stream == solo for {agree} tokens, first solo top-2 "
+        f"gap < {NEAR_TIE} at {tie}")
+    return len(toks) == len(solo) and agree >= tie
+
+
+def families_fp32_exact():
+    """Phase 10 (a): each family's narrow fp32 model on the card. Greedy AR
+    == self-spec (exit 2, W 4) == tree (k 2, W 3) exactly for 24 tokens
+    after a 100-token prompt (past the 32-token window of the windowed families, so K1's
+    runtime window and K2/K3's window clause cut keys); a 4-slot paged
+    session (pages of 16) == solo over the fp32 pool (K2) and the int8 pool
+    (K3), for an MoE model up to the first near tie (``same_stream``); int8
+    (K4/K5) and int4 (K6/K7) bases AR == spec. Every kernel the
+    family reaches launched, all on the CUDA cores (fp32); the MoE paths
+    taken are counted. Returns (ok, launch counts summed over the runs)."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
+    from layerskip_tpu_torch.ops import moe
+    from layerskip_tpu_torch.quant import quantize_llama_params
+
+    ok, total = True, {}
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(3, 512, size=100).tolist()
+    prompts = [rng.integers(3, 512, size=n).tolist() for n in (90, 7, 60, 41)]
+    budgets = [24, 9, 20, 16]
+    eos = (512 + 7,)
+    spec = dict(generation_strategy="self_speculative", exit_layer=2, num_speculations=4)
+    tree = dict(generation_strategy="self_speculative", exit_layer=2, num_speculations=3,
+                spec_tree_width=2)
+    for name in FAMILIES:
+        cfg, params = family_model(name)
+        eng = Engine(params, cfg, device="cuda")
+        n = {}
+
+        def run(engine, p=prompt, m=FAMILY_STEPS, **kw):
+            before = read_counts()
+            out = engine.generate(p, GenerationConfig(max_steps=m, sample=False, **kw),
+                                  eos_ids=eos)
+            after = read_counts()
+            for k in after:
+                n[k] = n.get(k, 0) + after[k] - before[k]
+            return postprocess_output(out, eos, m)
+
+        reset_counts()
+        moe.reset_path_calls()
+        ar = run(eng, generation_strategy="autoregressive")
+        good = {"spec": run(eng, **spec) == ar, "tree": run(eng, **tree) == ar}
+        for label, kv_quant in (("fp32 pool", False), ("int8 pool", True)):
+            g = GenerationConfig(max_steps=max(budgets), sample=False, kv_quant=kv_quant,
+                                 **spec)
+            session = eng.continuous_session(g, batch=4, prompt_bucket=128, eos_ids=eos,
+                                             paged_pool_pages=64, page_size=16)
+            before = read_counts()
+            got = serve_session(session, prompts, budgets)
+            after = read_counts()
+            for k in after:
+                n[k] = n.get(k, 0) + after[k] - before[k]
+            good[label] = all(same_stream(params, cfg, p, got[i],
+                                          run(eng, p, m, kv_quant=kv_quant, **spec),
+                                          kv_quant)
+                              for i, (p, m) in enumerate(zip(prompts, budgets)))
+        for bits in (8, 4):
+            qeng = Engine(quantize_llama_params(params, bits=bits), cfg, device="cuda")
+            good[f"int{bits}"] = run(qeng, generation_strategy="autoregressive") == \
+                run(qeng, **spec)
+        reached = ["flash_prefill", "paged_decode_attention", "paged_decode_attention_q8",
+                   "quant_matmul_t", "quant_matmul", "int4_matmul", "int4_matmul_t"]
+        launched = all(n[k] > 0 for k in reached)
+        cuda_cores = all(n[f"{k}_tensor_core"] == 0 for k in TENSOR_CORE_ROUTES)
+        paths = dict(moe.PATH_CALLS)
+        moe_ok = not cfg.is_moe or (paths["few"] > 0 and paths["dense"] > 0)
+        family_ok = (all(good.values()) and len(ar) == FAMILY_STEPS and launched
+                     and cuda_cores and moe_ok)
+        ok &= family_ok
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[family fp32] {name}: " + ", ".join(f"{k} {v}" for k, v in good.items())
+            + f" (AR {len(ar)} tokens, {len(set(ar))} distinct); launches "
+            + " ".join(f"{k}={n[k]}" for k in reached) + f"; CUDA cores only {cuda_cores}"
+            + (f"; moe paths {paths}" if cfg.is_moe else "")
+            + f" -> {'PASS' if family_ok else 'FAIL'}")
+        del eng, params
+    return ok, total
+
+
+G2B_EXIT, G2B_TTFT = 8, ((200, "flash_prefill_g2b_t256_bf16"),
+                         (6000, "flash_prefill_g2b_t6144_bf16"))
+G2B_SESSION_LENS, G2B_SESSION_BUDGETS = (4200, 200, 137, 95), (48, 32, 32, 24)
+
+
+def batch1_pair(eng, prompt, ar_cfg, sp_cfg, eos):
+    """(AR tokens, spec tokens, stats, launch counts of both runs) after a
+    short warm-up of each; counts set to 0 before each run, read after."""
+    for warm in (ar_cfg, sp_cfg):
+        eng.generate(prompt, dataclasses.replace(warm, max_steps=8), eos_ids=eos)
+    torch.cuda.synchronize()
+    ar, t_ar, _, _, n_ar = generate_timed(eng, prompt, ar_cfg, eos)
+    sp, t_sp, matches, drafts, n_sp = generate_timed(eng, prompt, sp_cfg, eos)
+    counts = {k: n_ar[k] + n_sp[k] for k in n_ar}
+    per_tok = lambda n, toks: {k: v / max(len(toks), 1)  # noqa: E731
+                               for k, v in n.items() if v and not k.endswith(("_tree",))}
+    stats = dict(ar_tok_s=len(ar) / t_ar, spec_tok_s=len(sp) / t_sp,
+                 speedup=(len(sp) / t_sp) / (len(ar) / t_ar),
+                 acceptance=matches / max(drafts, 1), matches=matches, drafts=drafts,
+                 ar_launches_per_token=per_tok(n_ar, ar),
+                 spec_launches_per_token=per_tok(n_sp, sp))
+    return ar, sp, stats, counts
+
+
+def session_vs_solo(eng, params, cfg, gen, prompts, budgets, bucket, pool_pages, kv_quant,
+                    floor=NEAR_TIE, min_compared=2):
+    """A 4-slot paged session (pages of 128) over ``prompts``: (ok, stats,
+    launch counts), each request == its solo stream up to its first top-2
+    gap under twice the larger of ``floor`` and the solo streams' own
+    shortfall (or its budget), with at least ``min_compared`` tokens so
+    compared in each request, and every served token within that of the
+    teacher-forced argmax."""
+    session = eng.continuous_session(gen, batch=4, prompt_bucket=bucket,
+                                     eos_ids=(cfg.vocab_size + 7,),
+                                     paged_pool_pages=pool_pages, page_size=128)
+    reset_counts()
+    t0 = time.perf_counter()
+    session.insert(list(range(len(prompts))), prompts, max_tokens=list(budgets))
+    got, rounds = {}, 0
+    while session.has_active():
+        for r, toks, _ in session.step():
+            got[r] = toks
+        rounds += 1
+    secs = time.perf_counter() - t0
+    n = read_counts()
+    got = [got[r] for r in range(len(prompts))]
+    eos = (cfg.vocab_size + 7,)
+    solos = []
+    for p, m in zip(prompts, budgets):
+        out = eng.generate(p, dataclasses.replace(gen, max_steps=m), eos_ids=eos)
+        solos.append(out.tokens[0, :int(out.num_tokens[0])].tolist()[:m])
+    solo_short = max(greedy_shortfall(params, cfg, p, t, kv_quant)[1]
+                     for p, t in zip(prompts, solos))
+    limit = 2 * max(floor, solo_short)
+    agree, worst = [], 0.0
+    for p, m, toks, solo in zip(prompts, budgets, got, solos):
+        tie = near_tie(params, cfg, p, solo, kv_quant, threshold=limit)[0]
+        agree.append((first_diff(toks, solo), min(tie, m), len(toks) == m))
+        worst = max(worst, greedy_shortfall(params, cfg, p, toks, kv_quant)[1])
+    kernel = "paged_decode_attention_q8" if kv_quant else "paged_decode_attention"
+    ok = (all(a >= t >= min_compared and full for a, t, full in agree) and worst <= limit
+          and n[kernel] > 0)
+    n_tok = sum(len(t) for t in got)
+    stats = dict(tokens=n_tok, seconds=secs, tok_s=n_tok / secs, rounds=rounds,
+                 launches=n[kernel], agree=[(a, t) for a, t, _ in agree], limit=limit,
+                 worst_shortfall=worst, solo_shortfall=solo_short)
+    return ok, stats, n
+
+
+def gemma2_2b_full_width(card, kres):
+    """Phase 10 (b): Gemma-2-2B at full width in bf16, from the loader
+    (``random:gemma2-2b?tail_eps=0&tail_from=8``), exit 8, W 6: AR and spec
+    at batch 1 (phase 5's 200-token prompt, 128 steps; tok/s, acceptance,
+    launches per token; spec == AR up to the first near tie, and the same
+    weights in fp32 spec == AR exactly for 48 tokens); the time to first
+    token of a 200- and a 6000-token prompt (past the 4096 window: K1 skips
+    whole key tiles in the 13 sliding layers); the int8 base (K4/K5 at K
+    2304); a 4-slot paged session over the bf16 and the int8 pool with one
+    request of 4200 prompt tokens, longer than the window (K2/K3 at Dh 256
+    under the window clause)."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.quant import quantize_llama_params
+
+    t0 = time.time()
+    params, cfg, _ = load_model_and_tokenizer(
+        f"random:gemma2-2b?tail_eps=0&tail_from={G2B_EXIT}", device="cuda")
+    torch.cuda.synchronize()
+    log(f"[gemma2-2b] random weights built in {time.time() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    eng = Engine(params, cfg, device="cuda")
+    prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
+    eos = (cfg.vocab_size + 7,)
+    ar_cfg = GenerationConfig(max_steps=FULL_STEPS, sample=False,
+                              generation_strategy="autoregressive")
+    sp_cfg = GenerationConfig(max_steps=FULL_STEPS, sample=False,
+                              generation_strategy="self_speculative",
+                              exit_layer=G2B_EXIT, num_speculations=FULL_W)
+    ar, sp, stats, counts = batch1_pair(eng, prompt, ar_cfg, sp_cfg, eos)
+    tie, tf_agree, finite = near_tie(params, cfg, prompt, ar)
+    agree = first_diff(ar, sp)
+    ok = (finite and agree >= tie and len(ar) == len(sp) == FULL_STEPS
+          and stats["acceptance"] >= 0.9
+          and counts["flash_prefill"] == counts["flash_prefill_tensor_core"]
+          == 2 * cfg.num_hidden_layers)
+    stats.update(spec_eq_ar=agree, first_tie=tie, card=card)
+    log(f"[gemma2-2b] AR {stats['ar_tok_s']:.2f} tok/s, spec exit={G2B_EXIT} W={FULL_W} "
+        f"{stats['spec_tok_s']:.2f} tok/s ({stats['speedup']:.3f}x), acceptance "
+        f"{stats['matches']}/{stats['drafts']} = {stats['acceptance']:.4f}; spec == AR for "
+        f"{agree} (first top-2 gap < {NEAR_TIE} at {tie}, teacher-forced == AR for "
+        f"{tf_agree}); launches per token AR {stats['ar_launches_per_token']} spec "
+        f"{stats['spec_launches_per_token']} -> {'PASS' if ok else 'FAIL'} ({card})")
+
+    # time to first token: generate(max_steps=1) after a warm-up of the same prompt
+    rng = np.random.default_rng(4)
+    gen1 = dataclasses.replace(ar_cfg, max_steps=1)
+    stats["ttft"] = {}
+    for n_tok, case in G2B_TTFT:
+        p = rng.integers(3, cfg.vocab_size, size=n_tok).tolist()
+        eng.generate(p, gen1, eos_ids=eos)
+        torch.cuda.synchronize()
+        toks, secs, _, _, n = generate_timed(eng, p, gen1, eos)
+        for k, v in n.items():
+            counts[k] += v
+        # the 13 sliding layers run phase 3's windowed case, the 13 global the other
+        k1_ms = (cfg.num_hidden_layers // 2) * (kres[case]["ms"]
+                                                + kres[case.replace("_bf16", "_win_bf16")]["ms"])
+        stats["ttft"][n_tok] = dict(ms=secs * 1e3, k1_launches=n["flash_prefill"],
+                                    k1_device_ms=k1_ms)
+        ok &= len(toks) == 1 and n["flash_prefill"] == cfg.num_hidden_layers
+        log(f"[gemma2-2b ttft] {n_tok}-token prompt: {secs * 1e3:.2f} ms, K1 "
+            f"{n['flash_prefill']} launches = {k1_ms:.3f} ms at phase 3's times ({case}, "
+            f"half windowed) ({card})")
+
+    params32, cfg32 = fp32_model(params, cfg)
+    eng32 = Engine(params32, cfg32, device="cuda")
+    ar32 = generate_timed(eng32, prompt, dataclasses.replace(ar_cfg, max_steps=48), eos)[0]
+    sp32 = generate_timed(eng32, prompt, dataclasses.replace(sp_cfg, max_steps=48), eos)[0]
+    good32 = ar32 == sp32 and len(ar32) == 48
+    ok &= good32
+    stats["fp32_spec_eq_ar"] = first_diff(ar32, sp32)
+    log(f"[gemma2-2b fp32] spec == AR for all 48 tokens: {good32} (first diff "
+        f"{first_diff(ar32, sp32)}) -> {'PASS' if good32 else 'FAIL'}")
+    del eng32, params32
+    free_cuda()
+
+    qparams = quantize_llama_params(params, bits=8)
+    qeng = Engine(qparams, cfg, device="cuda")
+    qar, qsp, qstats, qn = batch1_pair(qeng, prompt, ar_cfg, sp_cfg, eos)
+    for k, v in qn.items():
+        counts[k] += v
+    qtie, _, qfinite = near_tie(qparams, cfg, prompt, qar)
+    qagree = first_diff(qar, qsp)
+    nl = cfg.num_hidden_layers
+    good = (qfinite and qagree >= qtie and qstats["acceptance"] >= 0.9
+            and qn["quant_matmul_t"] > 0 and qn["quant_matmul"] > 0
+            and qn["quant_matmul_t_tensor_core"] == qn["quant_matmul_t"]
+            and qn["quant_matmul_tensor_core"] == qn["quant_matmul"])
+    ok &= good
+    stats["int8_base"] = dict(qstats, spec_eq_ar=qagree, first_tie=qtie)
+    log(f"[gemma2-2b int8_base] AR {qstats['ar_tok_s']:.2f} tok/s, spec "
+        f"{qstats['spec_tok_s']:.2f} tok/s, acceptance {qstats['acceptance']:.4f}; spec == "
+        f"AR for {qagree} (first gap < {NEAR_TIE} at {qtie}); K4 {qn['quant_matmul_t']} "
+        f"K5 {qn['quant_matmul']} launches ({3 * nl} and {4 * nl} a layer pass) -> "
+        f"{'PASS' if good else 'FAIL'} ({card})")
+    del qeng, qparams
+    free_cuda()
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in G2B_SESSION_LENS]
+    gen = dataclasses.replace(sp_cfg, max_steps=max(G2B_SESSION_BUDGETS))
+    stats["session"] = {}
+    for label, kv_quant in (("bf16_pool", False), ("int8_pool", True)):
+        good, st, n = session_vs_solo(eng, params, cfg, dataclasses.replace(
+            gen, kv_quant=kv_quant), prompts, G2B_SESSION_BUDGETS, 4224, 144, kv_quant)
+        for k, v in n.items():
+            counts[k] += v
+        ok &= good
+        stats["session"][label] = st
+        log(f"[gemma2-2b session] {label}: 4 requests (prompts {G2B_SESSION_LENS}), "
+            f"{st['tokens']} tokens in {st['seconds']:.3f}s = {st['tok_s']:.2f} tok/s, "
+            f"{st['rounds']} rounds, K2/K3 launches {st['launches']}; == solo up to (first "
+            f"diff, first gap under {st['limit']:.4f} or budget) {st['agree']}, largest "
+            f"shortfall {st['worst_shortfall']:.4f} -> {'PASS' if good else 'FAIL'} ({card})")
+    del eng, params
+    free_cuda()
+    return ok, stats, counts
+
+
+MOE_EXIT = 4
+
+
+def moe_3b_full_width(card, kres):
+    """Phase 10 (c): moe-3b (Mixtral architecture, 8 experts, top 2) at full
+    width in bf16 from ``random:moe-3b?tail_eps=0&tail_from=4``, exit 4, W
+    6: AR and spec at batch 1 (tok/s, acceptance, launches per token, spec
+    == AR up to the first near tie) with the ``moe_mlp`` path of each call
+    counted (few in the decode and draft steps, dense in the verify windows
+    and the 200-token prefill; the same weights in fp32 spec == AR exactly
+    for 48 tokens), the time to first token of a 2000-token prompt (bucket
+    2048: the grouped path), and a 4-slot paged session (bf16 pool): on the
+    fp32 copy == solo up to the first gap under FP32_TIE (at least two
+    tokens compared a request), in bf16 timed, each token within the bf16
+    noise of the teacher-forced argmax."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.ops import moe
+
+    t0 = time.time()
+    params, cfg, _ = load_model_and_tokenizer(
+        f"random:moe-3b?tail_eps=0&tail_from={MOE_EXIT}", device="cuda")
+    torch.cuda.synchronize()
+    log(f"[moe-3b] random weights built in {time.time() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    eng = Engine(params, cfg, device="cuda")
+    prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
+    eos = (cfg.vocab_size + 7,)
+    ar_cfg = GenerationConfig(max_steps=FULL_STEPS, sample=False,
+                              generation_strategy="autoregressive")
+    sp_cfg = GenerationConfig(max_steps=FULL_STEPS, sample=False,
+                              generation_strategy="self_speculative",
+                              exit_layer=MOE_EXIT, num_speculations=FULL_W)
+    for warm in (ar_cfg, sp_cfg):
+        eng.generate(prompt, dataclasses.replace(warm, max_steps=8), eos_ids=eos)
+    torch.cuda.synchronize()
+    paths = {}
+    moe.reset_path_calls()
+    ar, t_ar, _, _, n_ar = generate_timed(eng, prompt, ar_cfg, eos)
+    paths["ar"] = dict(moe.PATH_CALLS)
+    moe.reset_path_calls()
+    sp, t_sp, matches, drafts, n_sp = generate_timed(eng, prompt, sp_cfg, eos)
+    paths["spec"] = dict(moe.PATH_CALLS)
+    counts = {k: n_ar[k] + n_sp[k] for k in n_ar}
+    nl = cfg.num_hidden_layers
+    stats = dict(ar_tok_s=len(ar) / t_ar, spec_tok_s=len(sp) / t_sp,
+                 speedup=t_ar / t_sp * len(sp) / len(ar), acceptance=matches / max(drafts, 1),
+                 matches=matches, drafts=drafts, paths=paths, card=card,
+                 ar_launches_per_token={k: v / len(ar) for k, v in n_ar.items() if v},
+                 spec_launches_per_token={k: v / len(sp) for k, v in n_sp.items() if v})
+    tie, tf_agree, finite = near_tie(params, cfg, prompt, ar)
+    agree = first_diff(ar, sp)
+    # AR: one dense prefill per layer, then a few-path step per layer and token;
+    # spec: drafts take few, verify windows (7 tokens, 14 assignments) dense
+    ok = (finite and agree >= tie and len(ar) == len(sp) == FULL_STEPS
+          and stats["acceptance"] >= 0.9 and paths["ar"]["dense"] == nl
+          and paths["ar"]["few"] == nl * (FULL_STEPS - 1) and paths["spec"]["few"] > 0
+          and paths["spec"]["dense"] > nl and counts["flash_prefill"] == 2 * nl)
+    stats.update(spec_eq_ar=agree, first_tie=tie)
+    log(f"[moe-3b] AR {stats['ar_tok_s']:.2f} tok/s, spec exit={MOE_EXIT} W={FULL_W} "
+        f"{stats['spec_tok_s']:.2f} tok/s ({stats['speedup']:.3f}x), acceptance "
+        f"{matches}/{drafts} = {stats['acceptance']:.4f}; spec == AR for {agree} (first "
+        f"top-2 gap < {NEAR_TIE} at {tie}, teacher-forced == AR for {tf_agree}); moe_mlp "
+        f"paths {paths}; launches per token AR {stats['ar_launches_per_token']} spec "
+        f"{stats['spec_launches_per_token']} -> {'PASS' if ok else 'FAIL'} ({card})")
+
+    p = np.random.default_rng(4).integers(3, cfg.vocab_size, size=2000).tolist()
+    gen1 = dataclasses.replace(ar_cfg, max_steps=1)
+    eng.generate(p, gen1, eos_ids=eos)
+    torch.cuda.synchronize()
+    moe.reset_path_calls()
+    toks, secs, _, _, n = generate_timed(eng, p, gen1, eos)
+    grouped = dict(moe.PATH_CALLS)
+    for k, v in n.items():
+        counts[k] += v
+    good = len(toks) == 1 and grouped["grouped"] == nl and n["flash_prefill"] == nl
+    ok &= good
+    k1_ms = nl * kres["flash_prefill_moe3b_long_bf16"]["ms"]
+    stats["ttft_2000"] = dict(ms=secs * 1e3, paths=grouped, k1_device_ms=k1_ms)
+    log(f"[moe-3b ttft] 2000-token prompt (bucket 2048): {secs * 1e3:.2f} ms, K1 "
+        f"{n['flash_prefill']} launches = {k1_ms:.3f} ms at phase 3's time "
+        f"(flash_prefill_moe3b_long_bf16), moe_mlp paths {grouped} (want grouped {nl}) -> "
+        f"{'PASS' if good else 'FAIL'} ({card})")
+
+    params32, cfg32 = fp32_model(params, cfg)
+    eng32 = Engine(params32, cfg32, device="cuda")
+    ar32 = generate_timed(eng32, prompt, dataclasses.replace(ar_cfg, max_steps=48), eos)[0]
+    sp32 = generate_timed(eng32, prompt, dataclasses.replace(sp_cfg, max_steps=48), eos)[0]
+    good32 = ar32 == sp32 and len(ar32) == 48
+    ok &= good32
+    stats["fp32_spec_eq_ar"] = first_diff(ar32, sp32)
+    log(f"[moe-3b fp32] spec == AR for all 48 tokens: {good32} (first diff "
+        f"{first_diff(ar32, sp32)}) -> {'PASS' if good32 else 'FAIL'}")
+
+    # the session == solo is held on the fp32 copy, where only fp32
+    # rounding near ties may part them: in bf16 a served row's MoE path
+    # differs from its solo run's and this random model's near ties come
+    # within a token or two. The bf16 session is timed, and each of its
+    # tokens held to the bf16 noise of the teacher-forced argmax.
+    prompts = session_prompts(cfg)
+    gen = dataclasses.replace(sp_cfg, max_steps=max(SESSION_BUDGETS))
+    good, st32, counts32 = session_vs_solo(eng32, params32, cfg32, gen, prompts,
+                                           SESSION_BUDGETS, 256, 16, False, floor=FP32_TIE)
+    del eng32, params32
+    free_cuda()
+    good_bf16, st, n = session_vs_solo(eng, params, cfg, gen, prompts, SESSION_BUDGETS, 256,
+                                       16, False, min_compared=0)
+    for k, v in n.items():
+        counts[k] += v
+    ok &= good and good_bf16
+    stats.update(session_fp32=st32, session=st)
+    for label, st_, good_ in (("fp32", st32, good), ("bf16", st, good_bf16)):
+        log(f"[moe-3b session] {label}: 4 requests, {st_['tokens']} tokens in "
+            f"{st_['seconds']:.3f}s = {st_['tok_s']:.2f} tok/s, {st_['rounds']} rounds, K2 "
+            f"launches {st_['launches']}; == solo up to (first diff, first top-2 gap under "
+            f"{st_['limit']:.4g} or budget) {st_['agree']}"
+            f"{', at least 2 a request' if label == 'fp32' else ' (not required)'}; "
+            f"largest shortfall of a served token {st_['worst_shortfall']:.4g} (limit "
+            f"{st_['limit']:.4g}; of the solo streams {st_['solo_shortfall']:.4g}) -> "
+            f"{'PASS' if good_ else 'FAIL'} ({card})")
+    del eng, params
+    free_cuda()
+    return ok, stats, counts, counts32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1920,7 +2534,8 @@ def main() -> int:
     ok_quant_kernel, qres = check_quant_kernels()
     ok_paged_kernel, pres = check_paged_kernels()
     ok_kernel &= ok_quant_kernel and ok_paged_kernel
-    log(f"[phase 3] {time.time() - t0:.1f}s")
+    log(f"[phase 3] {time.time() - t0:.1f}s, of which {_FLEX['compile_s']:.1f}s "
+        f"compiling flex_attention")
     t0 = time.time()
     ok_fp32 = exact_fp32_greedy() & exact_fp32_paged()
     log(f"[phase 4] {time.time() - t0:.1f}s")
@@ -1953,13 +2568,24 @@ def main() -> int:
         f"{tree_ok}")
     log(f"[phase 9] {time.time() - t0:.1f}s")
     free_cuda()
-    # phases 5-8 and 9 (b) run in bf16 (9 (b)'s fp32 check only adds K2
-    # launches): every K1 launch must take the tensor-core route
-    for more in (qcounts, scounts, ecounts, dfcounts):
+    t0 = time.time()
+    ok_fam, fcounts = families_fp32_exact()
+    free_cuda()
+    ok_g2b, gstats, gcounts = gemma2_2b_full_width(card, kres)
+    ok_moe, mstats, mcounts, m32counts = moe_3b_full_width(card, kres)
+    ok_fam &= ok_g2b and ok_moe
+    k23_dh256 = all(gcounts[k] > 0 for k in TREE_ROUTES)
+    ok_fam &= k23_dh256
+    log(f"[phase 10 launches] (a) {json.dumps(fcounts)}; (b) {json.dumps(gcounts)}; "
+        f"(c) {json.dumps(mcounts)}; K2 and K3 launched at Dh 256: {k23_dh256}")
+    log(f"[phase 10] {time.time() - t0:.1f}s")
+    # phases 5-8, 9 (b) and 10 (b)-(c) run in bf16 (9 (b)'s fp32 check only
+    # adds K2 launches): every K1 launch must take the tensor-core route
+    for more in (qcounts, scounts, ecounts, dfcounts, gcounts, mcounts):
         for k, v in more.items():
             counts[k] += v
     ok_route = counts["flash_prefill_tensor_core"] == counts["flash_prefill"] > 0
-    log(f"[k1 route] phases 5-9 (b): {counts['flash_prefill']} K1 launches, "
+    log(f"[k1 route] phases 5-10: {counts['flash_prefill']} K1 launches, "
         f"{counts['flash_prefill_tensor_core']} on the tensor-core route -> "
         f"{'PASS' if ok_route else 'FAIL'}")
     ok_full &= ok_route
@@ -1967,19 +2593,21 @@ def main() -> int:
     for label, kinds in (("k4/k7", ("quant_matmul_t", "int4_matmul_t")),
                          ("k5/k6", ("quant_matmul", "int4_matmul"))):
         ok_qroute = all(counts[f"{k}_tensor_core"] == counts[k] > 0 for k in kinds)
-        log(f"[{label} route] phases 5-9 (b): " + ", ".join(
+        log(f"[{label} route] phases 5-10: " + ", ".join(
             f"{k} {counts[k]} launches, {counts[f'{k}_tensor_core']} on the tensor cores"
             for k in kinds) + f" -> {'PASS' if ok_qroute else 'FAIL'}")
         ok_quant &= ok_qroute
-    for k, v in dcounts.items():  # 9 (a) is fp32: its K1 and K4/K5 on the CUDA cores
-        counts[k] += v
+    for more in (dcounts, fcounts, m32counts):  # 9 (a), 10 (a), 10 (c)'s fp32 session
+        for k, v in more.items():
+            counts[k] += v
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
-        f"drafting={ok_draft} {json.dumps(stats)} {json.dumps(qstats)} {json.dumps(sstats)} "
-        f"{json.dumps(estats)} {json.dumps(dstats)} launches={json.dumps(counts)} total "
+        f"drafting={ok_draft} families={ok_fam} {json.dumps(stats)} {json.dumps(qstats)} "
+        f"{json.dumps(sstats)} {json.dumps(estats)} {json.dumps(dstats)} "
+        f"{json.dumps(gstats)} {json.dumps(mstats)} launches={json.dumps(counts)} total "
         f"{time.time() - t_start:.1f}s")
     if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry
-            and ok_draft):
+            and ok_draft and ok_fam):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]

@@ -1,7 +1,7 @@
 """Headline benchmark of the port: self-speculative decoding's speedup over
 autoregressive decoding, as one JSON line.
 
-    python -m layerskip_tpu_torch.bench [--config 7b|1b|tiny] [--exit-layer N]
+    python -m layerskip_tpu_torch.bench [--config 7b|1b|moe-3b|tiny] [--exit-layer N]
         [--spec W] [--max-steps N] [--prompt-len N] [--repeats N]
         [--tail-eps X] [--no-curve] [--headline-dq 8|4|0] [--tree-width K]
         [--draft-exit-prob P] [--deadline-s S] [--device cuda|cpu]
@@ -62,9 +62,9 @@ def build_config(name: str):
 
     if name == "tiny":
         return tiny_config(dtype=torch.bfloat16)
-    if name in PRESETS:
+    if name in ("7b", "1b", "moe-3b"):
         return PRESETS[name]()
-    raise NotImplementedError(f"config {name!r} needs the MoE slice of the port")
+    raise ValueError(f"unknown config {name!r}")
 
 
 def timed_generate(engine, prompt, gen_cfg, repeats: int, warmup: bool = True):

@@ -41,21 +41,32 @@ class SimpleTokenizer:
         return " ".join(str(int(t)) for t in ids)
 
 
-# the JAX package's presets of families this port does not run yet
-_LATER = {"qwen3": "model families", "gemma2": "model families",
-          "gemma2-2b": "model families", "gemma3": "model families",
-          "moe": "MoE", "qwen3moe": "MoE", "moe-3b": "MoE"}
-
-
 def _preset_config(name: str) -> ModelConfig:
     """The shapes of the JAX package's ``random:`` presets, in bf16."""
+    bf16 = torch.bfloat16
+    gemma = dict(hidden_act="gelu_pytorch_tanh", rms_norm_offset=True,
+                 scale_embeddings=True, tie_word_embeddings=True, post_norms=True)
     if name == "tiny":
-        return tiny_config(dtype=torch.bfloat16)
-    if name in PRESETS:  # 1b, 7b
+        return tiny_config(dtype=bf16)
+    if name in PRESETS:  # 1b, 7b, and the Gemma-2-2B and moe-3b shapes
         return PRESETS[name]()
-    if name in _LATER:
-        raise NotImplementedError(
-            f"preset {name!r} needs the {_LATER[name]} slice of the port")
+    if name == "qwen3":  # tiny Qwen3: per-head q/k norms before RoPE
+        return tiny_config(dtype=bf16, qk_norm=True, tie_word_embeddings=True)
+    if name == "gemma2":  # tiny Gemma-2: alternating windows and softcaps
+        return tiny_config(dtype=bf16, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                           query_pre_attn_scalar=32.0, sliding_window=8,
+                           sliding_window_pattern=2, **gemma)
+    if name == "gemma3":  # tiny Gemma-3: 5 of 6 layers slide, local RoPE base
+        return tiny_config(dtype=bf16, num_hidden_layers=6, qk_norm=True,
+                           query_pre_attn_scalar=32.0, sliding_window=8,
+                           sliding_window_pattern=6, rope_theta=100000.0,
+                           rope_local_theta=10000.0, **gemma)
+    if name == "qwen3moe":  # tiny Qwen3-MoE: q/k norms and top-k experts
+        return tiny_config(dtype=bf16, qk_norm=True, tie_word_embeddings=True,
+                           num_local_experts=4, num_experts_per_tok=2,
+                           norm_topk_prob=False)
+    if name == "moe":  # tiny Mixtral-style MoE
+        return tiny_config(dtype=bf16, num_local_experts=4, num_experts_per_tok=2)
     raise ValueError(f"unknown random preset: {name}")
 
 
@@ -96,10 +107,16 @@ def load_model_and_tokenizer(
     """(params on ``device``, config, tokenizer) for ``model``.
 
     ``model`` is a local HF checkpoint directory (its weights cast to
-    ``dtype``) or ``random:<preset>`` (tiny, 1b or 7b, always bf16) with an
+    ``dtype``) or ``random:<preset>`` (tiny, 1b, 7b, qwen3, gemma2,
+    gemma2-2b, gemma3, moe, qwen3moe or moe-3b, always bf16) with an
     optional query ``?tail_eps=E&tail_from=F``: the output projections
-    (wo, w_down) of layers >= F (default L/4) are scaled by E, the
-    acceptance dial of the bench (0 makes them identities). ``random:``
+    (wo, w_down, every expert's w_down) of layers >= F (default L/4) are
+    scaled by E, the acceptance dial of the bench (0 makes them
+    identities). The dial is inert above 0 for the post-norm families
+    (Gemma-2/3): their post-sublayer norms normalize a uniformly scaled
+    output back to the same direction, so acceptance stays where it is;
+    0 still makes the tail an identity (a zero output stays zero through
+    the norm). ``random:``
     weights come from torch's generator seeded with ``seed``, so they differ
     from the JAX package's for the same seed (threefry); to compare the two
     packages on the same weights, go through a checkpoint (``save_params``)
@@ -121,7 +138,7 @@ def load_model_and_tokenizer(
     if not os.path.isdir(model):
         raise FileNotFoundError(
             f"model {model!r} is not a local directory; download checkpoints "
-            "beforehand or use random:<tiny|1b|7b>")
+            "beforehand or use random:<preset>")
     cfg = ModelConfig.from_pretrained(model, dtype=dtype)
     params = _maybe_quantize(load_params(model, cfg, device=dev), quantize)
     try:

@@ -3,8 +3,9 @@
 The same architecture surface as the JAX package, with torch dtypes in place
 of jnp ones. ``from_hf_dict`` keeps the JAX package's fallbacks, including
 the Gemma-2 ones that differ from HF's defaults, so one ``config.json``
-gives equal fields in both packages. This slice runs dense Llama only; the
-model raises on the family features it does not carry (models/llama.py).
+gives equal fields in both packages. Every family the JAX package runs
+(Llama, Qwen2/Qwen3, Mistral, Gemma/Gemma-2/Gemma-3, Phi-3, Mixtral and
+Qwen3-MoE) runs in the port.
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ class ModelConfig:
     @property
     def q_heads_per_kv(self) -> int:
         return self.num_attention_heads // self.num_key_value_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_local_experts > 0
 
     @property
     def sliding_layer_flags(self) -> Optional[tuple]:
@@ -252,7 +257,36 @@ def llama32_1b_config() -> ModelConfig:
     )
 
 
-PRESETS = {"7b": llama2_7b_config, "1b": llama32_1b_config}
+def gemma2_2b_config() -> ModelConfig:
+    """Gemma-2-2B shape (HF ``google/gemma-2-2b`` config.json; the JAX
+    package's ``gemma2-2b`` preset): 26 layers, head_dim 256, GeGLU,
+    alternating 4096-token windows, softcaps 50/30, a tied 256000 x 2304
+    head."""
+    return ModelConfig(
+        vocab_size=256000, hidden_size=2304, intermediate_size=9216,
+        num_hidden_layers=26, num_attention_heads=8, num_key_value_heads=4,
+        head_dim=256, max_position_embeddings=8192, rms_norm_eps=1e-6,
+        rope_theta=10000.0, hidden_act="gelu_pytorch_tanh", rms_norm_offset=True,
+        scale_embeddings=True, tie_word_embeddings=True, attn_logit_softcap=50.0,
+        final_logit_softcap=30.0, query_pre_attn_scalar=256.0, sliding_window=4096,
+        sliding_window_pattern=2, post_norms=True, dtype=torch.bfloat16,
+    )
+
+
+def moe_3b_config() -> ModelConfig:
+    """The JAX package's Mixtral-architecture ``moe-3b`` preset: 16 layers
+    of 8 experts, top-2, ~3.5B parameters in all and ~1.1B active a token."""
+    return ModelConfig(
+        vocab_size=32000, hidden_size=2048, intermediate_size=4096,
+        num_hidden_layers=16, num_attention_heads=16, num_key_value_heads=8,
+        head_dim=128, max_position_embeddings=4096, rope_theta=500000.0,
+        num_local_experts=8, num_experts_per_tok=2, dtype=torch.bfloat16,
+        tie_word_embeddings=True,
+    )
+
+
+PRESETS = {"7b": llama2_7b_config, "1b": llama32_1b_config,
+           "gemma2-2b": gemma2_2b_config, "moe-3b": moe_3b_config}
 
 
 @dataclasses.dataclass

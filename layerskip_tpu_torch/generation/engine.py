@@ -85,7 +85,7 @@ def ar_generate(
             return logits
         return apply_ban(logits, no_repeat_ngram_banned(hist, hist_len, ngram, cfg.vocab_size))
 
-    h = llama.embed_tokens(params, ids)
+    h = llama.embed_tokens(params, ids, cfg)
     h, k, v = llama.run_layers(cfg, params.layers, h, cache.k, cache.v, 0)
     last_h = _row_gather(h, true_len - 1)  # [B, D]
     logits0 = llama.lm_logits(params, cfg, last_h[:, None])[:, 0]  # [B, V]
@@ -101,7 +101,7 @@ def ar_generate(
     out_len = torch.ones((b,), dtype=torch.long, device=dev)
     done = _is_eos(tok0, eos_ids) | (max_steps <= 1)
     while not bool(done.all()):
-        h = llama.embed_tokens(params, next_tok)
+        h = llama.embed_tokens(params, next_tok, cfg)
         h, k, v = llama.run_layers(cfg, params.layers, h, k, v, ctx)
         logits = ban(llama.lm_logits(params, cfg, h)[:, -1], hist, true_len + out_len)
         tok = draw(token_distribution(logits, scfg), generator, scfg)
@@ -131,7 +131,6 @@ class Engine:
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params on {params.embed.device}, engine on {self.device}")
-        llama.check_supported(cfg)
         # quantized draft-layer-group copies keyed (exit_layer, bits, head,
         # mlp_only), built once per engine; declared before ``params``, whose
         # setter clears it

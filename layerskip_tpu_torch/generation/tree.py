@@ -128,7 +128,7 @@ def _tree_round(
     ke, ve = r0.cache.k, r0.cache.v
     tips, chain_toks, h_steps, pd_steps = top, [], [], []
     for i in range(w):
-        h = llama.embed_tokens(params, tips)
+        h = llama.embed_tokens(params, tips, cfg)
         h, ke, ve = llama.run_layers(
             cfg, params.layers, h, ke, ve, s.ctx, 0,
             q_positions=(s.ctx + 1 + i)[:, None].expand(b, kk),

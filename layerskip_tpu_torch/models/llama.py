@@ -11,8 +11,12 @@ so running a layer range copies no weights. A Python loop over layers takes
 the place of ``lax.scan``. KV caches are written in place (ops/kv_cache.py),
 so the caches in a result are the caches that were passed in.
 
-This slice carries dense Llama only: a config with another family's features
-raises ``NotImplementedError`` instead of running wrong.
+Every family of the JAX package runs through the same layer: Qwen2's QKV
+biases, Qwen3's per-head q/k norms, Mistral's window, Gemma's ``(1 + w)``
+norms, sqrt(D)-scaled embeddings and gelu-tanh MLP, Gemma-2's post-sublayer
+norms, softcaps and alternating windows, Gemma-3's local RoPE base on its
+sliding layers, and the Mixtral/Qwen3-MoE expert MLP (ops/moe.py). Phi-3 is
+Llama once its fused projections are split (models/params.py).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from layerskip_tpu_torch.config import ModelConfig
+from layerskip_tpu_torch.config import ModelConfig, RopeScaling
 from layerskip_tpu_torch.ops.attention import gqa_attention
 from layerskip_tpu_torch.ops.kv_cache import KVCache, write_kv
 from layerskip_tpu_torch.ops.linear import (
@@ -32,6 +36,7 @@ from layerskip_tpu_torch.ops.linear import (
     apply_weight_t,
     matmul_f32,
 )
+from layerskip_tpu_torch.ops.moe import moe_mlp
 from layerskip_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_residual
 from layerskip_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 
@@ -39,18 +44,28 @@ from layerskip_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 @dataclasses.dataclass
 class LayerParams:
     """Per-layer weights, stacked on a leading [L] axis (the JAX package's
-    storage orientation). The seven matmul weights may be ``QuantTensor``s
-    (quant.py), which index per layer the same way."""
+    storage orientation and field names). The seven matmul weights may be
+    ``QuantTensor``s (quant.py), which index per layer the same way; a
+    family's optional fields are None where the family has none."""
 
     attn_norm: torch.Tensor  # [L, D]
     wq: torch.Tensor  # [L, Hq*Dh, D]   ([out, in])
     wk: torch.Tensor  # [L, Hkv*Dh, D]
     wv: torch.Tensor  # [L, Hkv*Dh, D]
     wo: torch.Tensor  # [L, Hq*Dh, D]   ([in, out])
-    mlp_norm: torch.Tensor  # [L, D]
-    w_gate: torch.Tensor  # [L, D, F]
-    w_up: torch.Tensor  # [L, D, F]
-    w_down: torch.Tensor  # [L, F, D]
+    mlp_norm: torch.Tensor  # [L, D] (Gemma-2/3: the pre-feedforward norm)
+    # dense: [L, D, F] / [L, F, D]; MoE (w_router set): [L, E, D, F] / [L, E, F, D]
+    w_gate: torch.Tensor
+    w_up: torch.Tensor
+    w_down: torch.Tensor
+    bq: Optional[torch.Tensor] = None  # [L, Hq*Dh]  Qwen2 QKV biases
+    bk: Optional[torch.Tensor] = None  # [L, Hkv*Dh]
+    bv: Optional[torch.Tensor] = None  # [L, Hkv*Dh]
+    w_router: Optional[torch.Tensor] = None  # [L, D, E]  MoE router
+    post_attn_norm: Optional[torch.Tensor] = None  # [L, D]  Gemma-2/3
+    post_mlp_norm: Optional[torch.Tensor] = None  # [L, D]
+    q_norm: Optional[torch.Tensor] = None  # [L, Dh]  Qwen3/Gemma-3, before RoPE
+    k_norm: Optional[torch.Tensor] = None  # [L, Dh]
 
 
 @dataclasses.dataclass
@@ -61,30 +76,19 @@ class LlamaParams:
     lm_head: Optional[Union[torch.Tensor, QuantTensor]]  # [D, V]; None => tied
 
 
-# family features this slice does not carry, by ModelConfig field
-_UNSUPPORTED = (
-    ("attention_bias", "QKV biases"),
-    ("qk_norm", "q/k norms"),
-    ("num_local_experts", "mixture-of-experts MLPs"),
-    ("post_norms", "post-sublayer norms"),
-    ("sliding_layer_flags", "per-layer sliding windows"),
-    ("rope_local_theta", "a local RoPE base"),
-    ("rms_norm_offset", "the (1 + w) norm"),
-    ("scale_embeddings", "scaled embeddings"),
-    ("final_logit_softcap", "final logit soft-capping"),
-)
+def embed_tokens(params: LlamaParams, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = params.embed[ids]
+    if cfg.scale_embeddings:
+        # Gemma: the sqrt(D) normalizer is cast to the model dtype first
+        h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
+    return h
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    for field, what in _UNSUPPORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{what} ({field}) is not ported yet")
-    if cfg.hidden_act != "silu":
-        raise NotImplementedError(f"activation {cfg.hidden_act!r} is not ported yet")
-
-
-def embed_tokens(params: LlamaParams, ids: torch.Tensor) -> torch.Tensor:
-    return params.embed[ids]
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP gate's activation: gelu-tanh for Gemma, silu otherwise."""
+    if cfg.hidden_act in ("gelu_pytorch_tanh", "gelu"):
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
 
 
 def _one_layer(
@@ -100,27 +104,51 @@ def _one_layer(
     q_positions: torch.Tensor,  # [B, T]
     past_scalar: Optional[int],
     tree_meta=None,  # tree chains (ops/attention.gqa_attention)
+    window: Optional[int] = None,  # this layer's window (0 = global)
 ) -> torch.Tensor:
     b, t, _ = h.shape
     hq, hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    x = rms_norm(h, layers.attn_norm[i], cfg.rms_norm_eps)
-    q = apply_weight_t(x, layers.wq[i]).reshape(b, t, hq, dh)
-    k = apply_weight_t(x, layers.wk[i]).reshape(b, t, hkv, dh)
-    v = apply_weight_t(x, layers.wv[i]).reshape(b, t, hkv, dh)
+    eps, off = cfg.rms_norm_eps, cfg.norm_offset
+    x = rms_norm(h, layers.attn_norm[i], eps, off)
+    q = apply_weight_t(x, layers.wq[i])
+    k = apply_weight_t(x, layers.wk[i])
+    v = apply_weight_t(x, layers.wv[i])
+    if layers.bq is not None:  # Qwen2
+        q = q + layers.bq[i]
+        k = k + layers.bk[i]
+        v = v + layers.bv[i]
+    q = q.reshape(b, t, hq, dh)
+    k = k.reshape(b, t, hkv, dh)
+    v = v.reshape(b, t, hkv, dh)
+    if layers.q_norm is not None:  # Qwen3, Gemma-3: per-head norms before RoPE
+        q = rms_norm(q, layers.q_norm[i], eps, off)
+        k = rms_norm(k, layers.k_norm[i], eps, off)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     write_kv(k_layer, v_layer, k, v, write_pos)
     attn = gqa_attention(
         q, k_layer, v_layer, q_positions, q_heads_per_kv=cfg.q_heads_per_kv,
-        past_scalar=past_scalar, sliding_window=cfg.sliding_window, tree_meta=tree_meta,
+        past_scalar=past_scalar,
+        sliding_window=cfg.sliding_window if window is None else window,
+        tree_meta=tree_meta,
         score_scale=(cfg.query_pre_attn_scalar ** -0.5
                      if cfg.query_pre_attn_scalar else None),
         logit_softcap=cfg.attn_logit_softcap,
     )
     attn_out = apply_weight(attn.reshape(b, t, hq * dh), layers.wo[i])
-    x, h = rms_norm_residual(attn_out, h, layers.mlp_norm[i], cfg.rms_norm_eps)
-    gated = F.silu(apply_weight(x, layers.w_gate[i])) * apply_weight(x, layers.w_up[i])
-    return h + apply_weight(gated, layers.w_down[i])
+    if layers.post_attn_norm is not None:  # Gemma-2/3: norm the sublayer's output
+        attn_out = rms_norm(attn_out, layers.post_attn_norm[i], eps, off)
+    x, h = rms_norm_residual(attn_out, h, layers.mlp_norm[i], eps, off)
+    if layers.w_router is not None:
+        mlp_out, _ = moe_mlp(x, layers.w_router[i], layers.w_gate[i], layers.w_up[i],
+                             layers.w_down[i], cfg.num_experts_per_tok,
+                             norm_topk=cfg.norm_topk_prob)
+    else:
+        gated = _act(cfg, apply_weight(x, layers.w_gate[i])) * apply_weight(x, layers.w_up[i])
+        mlp_out = apply_weight(gated, layers.w_down[i])
+    if layers.post_mlp_norm is not None:
+        mlp_out = rms_norm(mlp_out, layers.post_mlp_norm[i], eps, off)
+    return h + mlp_out
 
 
 def run_layers(
@@ -143,8 +171,12 @@ def run_layers(
     ``q_positions`` / ``write_pos`` decouple logical positions from cache
     slots (tree speculation writes several same-position chain tokens to
     distinct interleaved slots, generation/tree.py); with ``q_positions``
-    the positions are never taken as one shared past, so K1 never runs."""
-    check_supported(cfg)
+    the positions are never taken as one shared past, so K1 never runs.
+
+    Gemma-2/3 choose each layer's window on the host from
+    ``cfg.sliding_layer_flags`` (a Python int, 0 = global, for the kernels'
+    runtime window), and Gemma-3's sliding layers take the cos/sin of
+    ``rope_local_theta``; both tables are built once per call."""
     b, t, _ = h.shape
     if isinstance(past_len, torch.Tensor) and past_len.dim() == 0:
         past_len = int(past_len)
@@ -161,20 +193,39 @@ def run_layers(
         q_positions = past_len[:, None] + steps
     kv_write_pos = past_len if write_pos is None else write_pos
     cos, sin = rope_cos_sin(q_positions, rope_inv_freq(cfg, h.device))
+    flags = cfg.sliding_layer_flags
+    local = None
+    if cfg.rope_local_theta and (flags is not None or cfg.sliding_window):
+        local_cfg = dataclasses.replace(cfg, rope_theta=cfg.rope_local_theta,
+                                        rope_scaling=RopeScaling())
+        local = rope_cos_sin(q_positions, rope_inv_freq(local_cfg, h.device))
     for j in range(k.shape[0]):
-        h = _one_layer(cfg, layers, layer_offset + j, h, k[j], v[j], cos, sin,
-                       kv_write_pos, q_positions, past_scalar, tree_meta)
+        i = layer_offset + j
+        window, cs = None, (cos, sin)
+        if flags is not None:
+            window = cfg.sliding_window if flags[i] else 0
+            if local is not None and flags[i]:
+                cs = local
+        elif local is not None:  # every layer slides: the local base throughout
+            cs = local
+        h = _one_layer(cfg, layers, i, h, k[j], v[j], *cs, kv_write_pos, q_positions,
+                       past_scalar, tree_meta, window)
     return h, k, v
 
 
 def lm_logits(params: LlamaParams, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Shared final norm + LM head, fp32 logits. A quantized head takes the
     fp32 hidden states (K5 or K6 at fp32)."""
-    h = rms_norm(h, params.final_norm, cfg.rms_norm_eps)
+    h = rms_norm(h, params.final_norm, cfg.rms_norm_eps, cfg.norm_offset)
     head = params.lm_head if params.lm_head is not None else params.embed.T
     if isinstance(head, QuantTensor):
-        return apply_weight(h.float(), head)
-    return matmul_f32(h, head)
+        logits = apply_weight(h.float(), head)
+    else:
+        logits = matmul_f32(h, head)
+    if cfg.final_logit_softcap:  # Gemma-2, on the fp32 logits
+        cap = float(cfg.final_logit_softcap)
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 @dataclasses.dataclass
@@ -194,7 +245,7 @@ class RemainderResult:
 def forward(params: LlamaParams, cfg: ModelConfig, ids: torch.Tensor,
             cache: KVCache, past_len) -> ForwardResult:
     """Full-model forward."""
-    h = embed_tokens(params, ids)
+    h = embed_tokens(params, ids, cfg)
     h, k, v = run_layers(cfg, params.layers, h, cache.k, cache.v, past_len)
     return ForwardResult(logits=lm_logits(params, cfg, h),
                          cache=KVCache(k=k, v=v), hidden=h)
@@ -204,7 +255,7 @@ def forward_early(params: LlamaParams, cfg: ModelConfig, ids: torch.Tensor,
                   early_cache: KVCache, draft_len, exit_layer: int) -> ForwardResult:
     """Draft pass: layers [0, exit_layer) + shared norm/head, over the early
     group's cache only."""
-    h = embed_tokens(params, ids)
+    h = embed_tokens(params, ids, cfg)
     h, ke, ve = run_layers(cfg, params.layers, h, early_cache.k, early_cache.v,
                            draft_len, layer_offset=0)
     return ForwardResult(logits=lm_logits(params, cfg, h),
@@ -226,7 +277,7 @@ def forward_remainder(
     ``draft_len``; full layers run the stitched window
     ``cat(exit_hidden, h_last)`` at ``full_len``. Returns fp32 logits over
     the window; both groups then hold ``full_len + W + 1`` valid positions."""
-    h1 = embed_tokens(params, last_draft_token)
+    h1 = embed_tokens(params, last_draft_token, cfg)
     h1, ke, ve = run_layers(cfg, params.layers, h1, early_cache.k,
                             early_cache.v, draft_len, layer_offset=0)
     full_h = torch.cat([exit_hidden, h1], dim=1)
@@ -249,7 +300,7 @@ def forward_split(
     # position per row, returned as [B, 1, V]
 ) -> RemainderResult:
     """Full-model forward over the split early/full caches (engine prefill)."""
-    h = embed_tokens(params, ids)
+    h = embed_tokens(params, ids, cfg)
     h, ke, ve = run_layers(cfg, params.layers, h, early_cache.k, early_cache.v,
                            past_len, layer_offset=0)
     h, kf, vf = run_layers(cfg, params.layers, h, full_cache.k, full_cache.v,

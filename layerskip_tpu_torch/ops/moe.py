@@ -1,0 +1,163 @@
+"""Mixture-of-experts MLP (port of ``layerskip_tpu/ops/moe.py``): the
+Mixtral-family ``block_sparse_moe`` and the Qwen3-MoE MLP.
+
+Routing is HF ``MixtralSparseMoeBlock``'s: router logits in the model
+dtype, fp32 softmax over all experts, top-k, and (``norm_topk``) the
+selected weights renormalized to sum 1. Three exact execution paths, none
+of which drops a token:
+
+  * ``few``: each (token, slot) assignment gathers its expert's weights
+    (``index_select`` with the device's expert ids, no host read) and
+    multiplies them: only the routed experts' weights are read. Decode and
+    draft steps, where ``n * k < E``;
+  * ``dense``: every expert's MLP for every token, combined with the
+    (mostly zero) routing weights. Verify windows and short prompts;
+  * ``grouped``: assignments sorted by expert, one product per expert's
+    contiguous segment (k/E of the dense path's products). Prefills of
+    2048 tokens and more.
+
+The JAX package computes these products with XLA, not with a Pallas
+kernel, so plain torch products are their port. A quantized expert stack
+goes through ``_qdot`` (the K4-K7 wrappers) in the ``few`` path, as the
+JAX package's ``_expert_mm`` does; the other two paths dequantize it to
+bf16 first, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from layerskip_tpu_torch.ops.linear import QuantTensor, _qdot
+
+# the JAX package's switch from the dense to the grouped path (measured there)
+_GROUPED_MIN_TOKENS = 2048
+
+# calls of ``moe_mlp`` by path taken; a host counter, read by callers that
+# report which path a run took (chip_smoke.py phase 10)
+PATH_CALLS = {"few": 0, "dense": 0, "grouped": 0}
+
+
+def reset_path_calls() -> None:
+    for key in PATH_CALLS:
+        PATH_CALLS[key] = 0
+
+
+def _dense(w, dtype: torch.dtype) -> torch.Tensor:
+    """Expert weights in ``dtype``: a QuantTensor is dequantized to bf16
+    (the JAX package's default) and then cast."""
+    if isinstance(w, QuantTensor):
+        return w.dequantize().to(dtype)
+    return w
+
+
+def route(x2: torch.Tensor, w_router: torch.Tensor, k: int,
+          norm_topk: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing of ``x2`` [N, D] over ``w_router`` [D, E]: (weights
+    [N, k] fp32, expert ids [N, k], the load-balancing term ``E * sum_e
+    f_e * P_e`` of this layer as a 0-d fp32 tensor)."""
+    e = w_router.shape[-1]
+    logits = x2 @ w_router  # model dtype, like HF's nn.Linear gate
+    probs = torch.softmax(logits.float(), dim=-1)  # [N, E]
+    topv, topi = torch.topk(probs, k, dim=-1)
+    if norm_topk:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    assign = F.one_hot(topi, e).float().sum(dim=1)  # [N, E]
+    f = assign.mean(dim=0)  # [E], sums to k
+    p = probs.mean(dim=0)
+    aux = float(e) * (f / k * p).sum()
+    return topv, topi, aux
+
+
+def _expert_mm(xs: torch.Tensor, w, experts: torch.Tensor) -> torch.Tensor:
+    """Row ``j`` of ``xs`` [M, K] times expert ``experts[j]`` of the stacked
+    ``w`` [E, K, N] (dense or quantized): [M, N] in xs's dtype. The experts
+    are gathered on the device (``index_select``), so nothing waits on the
+    host; a quantized weight goes through ``_qdot`` one assignment at a
+    time (M < E of them)."""
+    if isinstance(w, QuantTensor):
+        q = w.q.index_select(0, experts)
+        s = w.scale.index_select(0, experts)
+        return torch.cat([
+            _qdot(xs[j:j + 1], QuantTensor(q=q[j], scale=s[j], k_last=w.k_last,
+                                           group=w.group))
+            for j in range(xs.shape[0])])
+    return torch.bmm(xs[:, None, :], w.index_select(0, experts))[:, 0]
+
+
+def _moe_few(x2, topv, topi, w_gate, w_up, w_down, k: int) -> torch.Tensor:
+    """Per-assignment expert gather: reads only the routed experts. The
+    slots of a token add up in slot order, as the JAX package's unrolled
+    loop does."""
+    n = x2.shape[0]
+    flat_e = topi.reshape(n * k)
+    flat_w = topv.reshape(n * k).to(x2.dtype)
+    xs = x2.repeat_interleave(k, dim=0)  # [N*k, D]: assignment j reads token j // k
+    g = _expert_mm(xs, w_gate, flat_e)
+    u = _expert_mm(xs, w_up, flat_e)
+    y = _expert_mm(F.silu(g) * u, w_down, flat_e)  # [N*k, D]
+    y = (flat_w[:, None] * y).reshape(n, k, -1)
+    out = torch.zeros_like(x2)
+    for s in range(k):
+        out = out + y[:, s]
+    return out
+
+
+def _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts: int) -> torch.Tensor:
+    """All-experts combine."""
+    dt = x2.dtype
+    cw = torch.zeros((x2.shape[0], n_experts), dtype=torch.float32, device=x2.device)
+    cw = cw.scatter_add(1, topi, topv.float()).to(dt)  # [N, E]
+    g = torch.einsum("nd,edf->nef", x2, _dense(w_gate, dt))
+    u = torch.einsum("nd,edf->nef", x2, _dense(w_up, dt))
+    a = F.silu(g) * u * cw[:, :, None]
+    return torch.einsum("nef,efd->nd", a, _dense(w_down, dt))
+
+
+def _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
+                 k: int) -> torch.Tensor:
+    """Sort by expert, then one product per expert's segment."""
+    n, dt = x2.shape[0], x2.dtype
+    flat_e = topi.reshape(n * k)
+    order = torch.argsort(flat_e, stable=True)  # token order kept within an expert
+    tok = torch.div(order, k, rounding_mode="floor")
+    xs = x2.index_select(0, tok)  # [N*k, D], expert-contiguous
+    # the segments' bounds are read on the host: one read per layer of a
+    # prefill of _GROUPED_MIN_TOKENS tokens or more
+    sizes = torch.bincount(flat_e, minlength=n_experts).tolist()
+    y = torch.empty_like(xs)
+    start = 0
+    for e, size in enumerate(sizes):
+        if size:
+            seg = xs[start:start + size]
+            a = (F.silu(seg @ _dense(w_gate[e], dt))
+                 * (seg @ _dense(w_up[e], dt)))
+            y[start:start + size] = a @ _dense(w_down[e], dt)
+            start += size
+    w_sorted = topv.reshape(n * k).index_select(0, order).to(dt)
+    return torch.zeros_like(x2).index_add_(0, tok, y * w_sorted[:, None])
+
+
+def moe_mlp(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
+            num_experts_per_tok: int,
+            norm_topk: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE feed-forward of ``x`` [B, T, D] with stacked experts ``w_gate``/
+    ``w_up`` [E, D, F] and ``w_down`` [E, F, D] (dense or QuantTensor):
+    (output [B, T, D], load-balancing term). The path is the JAX package's
+    rule: ``few`` when n*k < E, ``grouped`` from 2048 tokens, else
+    ``dense``."""
+    b, t, d = x.shape
+    n_experts = w_router.shape[-1]
+    n, k = b * t, num_experts_per_tok
+    x2 = x.reshape(n, d)
+    topv, topi, aux = route(x2, w_router, k, norm_topk)
+    if n * k < n_experts:
+        path, out = "few", _moe_few(x2, topv, topi, w_gate, w_up, w_down, k)
+    elif n >= _GROUPED_MIN_TOKENS:
+        path, out = "grouped", _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts, k)
+    else:
+        path, out = "dense", _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts)
+    PATH_CALLS[path] += 1
+    return out.reshape(b, t, d).to(x.dtype), aux

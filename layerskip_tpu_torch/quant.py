@@ -82,13 +82,20 @@ def _quantize_stacked(w: torch.Tensor, n_layers: int, k_last: bool, bits: int,
 
 def _quantize_layer_slice(layers: LayerParams, exit_layer: int, bits: int, group: int,
                           fields: tuple = _QUANT_FIELDS) -> LayerParams:
-    """Layers [0, exit_layer) with ``fields`` quantized; the other fields are
-    views of the base stack (no copy)."""
+    """Layers [0, exit_layer) with ``fields`` quantized; the other fields
+    (norms, biases, the MoE router) are views of the base stack (no copy),
+    and a family's absent fields stay None. An expert stack [L, E, K, N]
+    quantizes per layer, with scales per (expert, output channel)."""
     kw = {}
     for f in dataclasses.fields(LayerParams):
         w = getattr(layers, f.name)
-        kw[f.name] = (_quantize_stacked(w, exit_layer, f.name in _K_LAST_FIELDS, bits, group)
-                      if f.name in fields else w[:exit_layer])
+        if w is None:
+            kw[f.name] = None
+        elif f.name in fields:
+            kw[f.name] = _quantize_stacked(w, exit_layer, f.name in _K_LAST_FIELDS, bits,
+                                           group)
+        else:
+            kw[f.name] = w[:exit_layer]
     return LayerParams(**kw)
 
 
@@ -98,8 +105,8 @@ def _quantize_head(w: torch.Tensor, bits: int, group: int) -> QuantTensor:
 
 def quantize_llama_params(params: LlamaParams, quantize_lm_head: bool = False,
                           bits: int = 8, group: int = 0) -> LlamaParams:
-    """Quantize the seven per-layer matmul weights (norms and embeddings stay
-    as they are; the LM head only with ``quantize_lm_head``, since a
+    """Quantize the seven per-layer matmul weights (norms, biases, the router
+    and embeddings stay as they are; the LM head only with ``quantize_lm_head``, since a
     full-precision head keeps greedy argmax parity at the exits).
     ``bits=4`` selects groupwise int4."""
     nl = params.layers.wq.shape[0]

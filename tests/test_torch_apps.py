@@ -586,8 +586,6 @@ def test_quantized_loader_keeps_spec_equal_to_ar(quant):
 @pytest.mark.parametrize("kw,err", [
     (dict(model="random:tiny", dp=2), NotImplementedError),
     (dict(model="random:tiny", tp=2), NotImplementedError),
-    (dict(model="random:gemma2"), NotImplementedError),
-    (dict(model="random:moe-3b"), NotImplementedError),
     (dict(model="random:nope"), ValueError),
     (dict(model="/no/such/checkpoint"), FileNotFoundError),
     (dict(model="random:tiny", quantize="int3"), ValueError),
@@ -595,6 +593,43 @@ def test_quantized_loader_keeps_spec_equal_to_ar(quant):
 def test_loader_refuses(kw, err):
     with pytest.raises(err):
         tload(device="cpu", **kw)
+
+
+_JAX_PRESETS = ("tiny", "1b", "7b", "qwen3", "gemma2", "gemma2-2b", "gemma3", "moe",
+                "qwen3moe", "moe-3b")
+
+
+@pytest.mark.parametrize("preset", _JAX_PRESETS)
+def test_random_presets_equal_the_jax_loaders(preset):
+    """Every ``random:`` preset of the JAX loader has the same config in the
+    port (both bf16); the bench's ``moe-3b`` is the loader's."""
+    from layerskip_tpu.cli.loading import _preset_config as jax_preset
+    from layerskip_tpu_torch.bench import build_config
+    from layerskip_tpu_torch.cli.loading import _preset_config
+
+    got, want = dataclasses.asdict(_preset_config(preset)), dataclasses.asdict(jax_preset(preset))
+    assert (got.pop("dtype"), want.pop("dtype")) == (torch.bfloat16, jnp.bfloat16)
+    assert got == want
+    if preset in ("7b", "1b", "moe-3b"):
+        assert build_config(preset) == _preset_config(preset)
+
+
+@pytest.mark.parametrize("model", ["random:gemma2", "random:moe?tail_eps=0&tail_from=2"])
+def test_family_presets_load_and_generate(model):
+    """The presets the port once refused load (here the tiny Gemma-2 and
+    Mixtral shapes; their full-width siblings only differ in size), and
+    greedy spec == AR on them. The tail dial zeroes every expert's w_down."""
+    params, cfg, tok = tload(model, device="cpu")
+    assert cfg.dtype == torch.bfloat16 and isinstance(tok, SimpleTokenizer)
+    if cfg.is_moe:
+        assert params.layers.w_down.shape[:2] == (4, 4)
+        assert params.layers.w_down[2:].abs().max() == 0 < params.layers.w_down[:2].abs().max()
+    else:
+        assert params.layers.post_attn_norm is not None and params.final_norm.abs().max() == 0
+    eng = Engine(params, cfg, device="cpu")
+    runs = [postprocess_output(eng.generate([3, 5, 9, 11, 13, 17, 19, 23, 29, 31], GenerationConfig(
+        max_steps=8, sample=False, **STRATEGIES[s])), (), 8) for s in ("ar", "spec")]
+    assert runs[0] == runs[1] and len(runs[0]) == 8
 
 
 @pytest.mark.parametrize("model_args", ["dtype=int8", "dtype=float32,extra=1"])

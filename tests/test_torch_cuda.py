@@ -97,6 +97,9 @@ _TC_CASES = {
     "long_window_softcap_dh128": (2, 900, 1100, 100, 4, 4, 128, 300, 0.0, 30.0),
     "long_dh64": (1, 2100, 2200, 50, 8, 4, 64, 0, 0.0, 0.0),
     "long_dh256": (1, 1500, 1600, 0, 8, 4, 256, 0, 0.0, 0.0),
+    # Gemma-2-2B's heads and score math past its 4096 window, moe-3b's heads
+    "g2b_window_softcap_dh256": (1, 4500, 4600, 0, 4, 2, 256, 4096, 256.0 ** -0.5, 50.0),
+    "moe3b_dh128_g2": (1, 2048, 2048, 0, 8, 2, 128, 0, 0.0, 0.0),
 }
 
 
@@ -232,6 +235,12 @@ _QCASES = {
     "K7_bf16_g6_tma": ("int4_matmul_t", 9, 960, 100, 6, torch.bfloat16),
     "K7_bf16_g6": ("int4_matmul_t", 9, 600, 45, 6, torch.bfloat16),
     "K4_bf16_self": ("quant_matmul_t", 40, 1000, 67, 0, torch.bfloat16),
+    # Gemma-2-2B's products: K 2304 (36 tiles of 64, 18 int4 groups of 128)
+    # and its w_down's 9216
+    "K4_bf16_g2b_wq": ("quant_matmul_t", 7, 2304, 2048, 0, torch.bfloat16),
+    "K7_bf16_g2b_wk": ("int4_matmul_t", 1, 2304, 1024, 128, torch.bfloat16),
+    "K5_bf16_g2b_wdown": ("quant_matmul", 7, 9216, 2304, 0, torch.bfloat16),
+    "K6_bf16_g2b_wgate": ("int4_matmul", 1, 2304, 9216, 128, torch.bfloat16),
 }
 
 

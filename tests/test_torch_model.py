@@ -113,16 +113,25 @@ def test_params_from_numpy_round_trips(models):
             np.testing.assert_array_equal(getattr(got, name).numpy(),
                                           np.asarray(getattr(jp, name)))
         for f in dataclasses.fields(got.layers):
-            np.testing.assert_array_equal(getattr(got.layers, f.name).numpy(),
-                                          np.asarray(getattr(jp.layers, f.name)))
+            mine, want = getattr(got.layers, f.name), getattr(jp.layers, f.name)
+            assert (mine is None) == (want is None), f.name  # absent family fields
+            if want is not None:
+                np.testing.assert_array_equal(mine.numpy(), np.asarray(want))
     bf = tparams.params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)
     assert bf.layers.wq.dtype == torch.bfloat16 and bf.layers.wq.shape == (L, HQ * DH, D)
 
 
 def test_params_from_numpy_rejects_family_fields(models):
+    """A family's optional field (here Qwen2's q bias) loads as it is, and
+    the absent ones stay None; a field the port does not know is rejected."""
     tree = _numpy_tree()
-    tree["layers"]["bq"] = np.zeros((L, HQ * DH), np.float32)
-    with pytest.raises(NotImplementedError):
+    bq = np.random.default_rng(5).standard_normal((L, HQ * DH)).astype(np.float32)
+    tree["layers"]["bq"] = bq
+    got = tparams.params_from_numpy(tree, device="cpu")
+    np.testing.assert_array_equal(got.layers.bq.numpy(), bq)
+    assert got.layers.bk is None and got.layers.w_router is None
+    tree["layers"]["w_nope"] = bq
+    with pytest.raises(ValueError, match="w_nope"):
         tparams.params_from_numpy(tree, device="cpu")
 
 
