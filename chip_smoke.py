@@ -93,9 +93,23 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      prompts, K2/K3 at ~400 and ~5000 keys), K4-K7 at its products (K
      2304 and 9216; M 1, 7 and 256) and K1 at moe-3b's heads (Hkv 8, G 2,
      Dh 128; T 256 and 2048);
+  11. training, the LayerSkip recipe (``training/recipe.py``): (a) phase 4's
+     Llama and phase 10 (a)'s Gemma-2 and Mixtral-style MoE in fp32, one
+     ``layerskip_loss`` and backward on the card == the same call on the
+     CPU (losses within 1e-5 relative, every gradient within atol 2e-5 /
+     rtol 2e-3) and the chunked CE == the dense one; (b) Llama-3.2-1B at
+     full width and depth in bf16 (``random:1b``) trained for 10 steps at B
+     4 x 1024 through ``cli.train.main`` (checkpoints every 5 steps, an
+     export), with median step ms, tokens/s, peak memory and MFU, the
+     chunked and the dense CE's peak memory, and the export loaded back
+     (bit-equal) generating greedy spec == AR up to the first near tie; (c)
+     moe-3b at full width in bf16, 3 steps at B 2 x 1024 on the grouped MoE
+     path, a positive load-balancing term, the router trained; no K1-K7
+     launch in any training run (they have no backward);
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
-Every kernel count is set to 0 just before each run of phases 5 to 10 and
-read just after it (K2's and K3's tree-clause launches too); every K1 and
+Every kernel count is set to 0 just before each run of phases 5 to 11 and
+read just after it (K2's and K3's tree-clause launches too; phase 11's must
+stay 0); every K1 and
 K4-K7 launch of the bf16 runs must have taken the tensor-core route, and
 every one of phase 4, phase 8's fp32 checkpoint, phase 9 (a) and phase 10
 (a) (fp32) the CUDA-core route.
@@ -2503,6 +2517,301 @@ def moe_3b_full_width(card, kres):
     return ok, stats, counts, counts32
 
 
+# ------------------------------------------------------------ phase 11
+
+
+TRAIN_LOSS_RTOL = 1e-5  # card == CPU and chunked == dense, fp32 losses
+TRAIN_GRAD_TOL = dict(atol=2e-5, rtol=2e-3)  # the JAX suite's chunked-CE bound
+
+
+def kernels_idle(label, counts) -> bool:
+    """No K1-K7 launch in a training run: none of them has a backward."""
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"[{label} launches] K1-K7 during training: {launched or 'none'}")
+    return not launched
+
+
+def params_on(params, device):
+    """A copy of ``params`` on ``device`` whose weights are leaves that
+    require grad."""
+    from layerskip_tpu_torch.training.recipe import trainable_tensors
+
+    def leaf(w):
+        return None if w is None else w.detach().to(device).clone().requires_grad_(True)
+
+    layers = dataclasses.replace(params.layers, **{
+        f.name: leaf(getattr(params.layers, f.name)) for f in dataclasses.fields(params.layers)})
+    out = dataclasses.replace(params, embed=leaf(params.embed), layers=layers,
+                              final_norm=leaf(params.final_norm), lm_head=leaf(params.lm_head))
+    trainable_tensors(out)  # dense weights only
+    return out
+
+
+def grad_gap(got, want) -> float:
+    """The largest |got - want| over ``atol + rtol * |want|`` of two
+    gradient dicts (<= 1 within TRAIN_GRAD_TOL)."""
+    tol = TRAIN_GRAD_TOL
+    return max(float(((got[k].float().cpu() - want[k].float().cpu()).abs()
+                      / (tol["atol"] + tol["rtol"] * want[k].float().cpu().abs())).max())
+               for k in want)
+
+
+def training_fp32_card_vs_cpu():
+    """Phase 11 (a): phase 4's Llama and phase 10 (a)'s Gemma-2 and
+    Mixtral-style MoE (L 4, D 256, fp32), one ``layerskip_loss`` and its
+    backward on the card and on the CPU on the same weights and batch (B 2,
+    T 64, exits 1-3, label smoothing 0.1, a 48-token chunked CE over 128
+    tokens, an explicit keep mask that drops samples): losses within
+    TRAIN_LOSS_RTOL, every gradient within TRAIN_GRAD_TOL; and on the card
+    the chunked CE == the dense one within the same bounds."""
+    from layerskip_tpu_torch.training import recipe
+
+    ok, b, t = True, 2, 64
+    reset_counts()
+    for name in ("llama", "gemma2", "mixtral"):
+        cfg, params = small_fp32_model() if name == "llama" else family_model(name)
+        nl = cfg.num_hidden_layers
+        rng = np.random.default_rng(21)
+        ids = rng.integers(0, cfg.vocab_size, size=(b, t))
+        labels = np.concatenate([ids[:, 1:], np.full((b, 1), -100)], axis=1)
+        labels[0, :5] = -100
+        keep = rng.random((nl, b)) >= 0.3
+        keep[nl - 1, 0] = False  # at least one sample skips a layer
+        tcfg = recipe.TrainConfig(p_max=0.3, early_exit_layers=(1, 2, 3), e_scale=0.5,
+                                  label_smoothing=0.1, ce_chunk_tokens=48)
+        runs = {}
+        for label, dev, chunk in (("card", "cuda", 48), ("cpu", "cpu", 48),
+                                  ("card dense", "cuda", 0)):
+            p = params_on(params, dev)
+            loss, aux = recipe.layerskip_loss(
+                p, cfg, dataclasses.replace(tcfg, ce_chunk_tokens=chunk),
+                torch.from_numpy(ids), torch.from_numpy(labels),
+                keep=torch.from_numpy(keep).to(dev))
+            loss.backward()
+            runs[label] = ({k: v.detach().cpu() for k, v in aux.items()},
+                           {k: w.grad for k, w in recipe.trainable_tensors(p).items()})
+        for other in ("cpu", "card dense"):
+            (aux, grads), (ref, ref_grads) = runs["card"], runs[other]
+            rel = max(float(((aux[k] - ref[k]).abs() / ref[k].abs().clamp(min=1e-30)).max())
+                      for k in ("loss", "final_loss", "exit_losses"))
+            gap = grad_gap(grads, ref_grads)
+            good = (rel <= TRAIN_LOSS_RTOL and gap <= 1.0
+                    and bool(torch.isfinite(aux["loss"])))
+            ok &= good
+            log(f"[train fp32] {name}: card (chunked) vs {other}: loss {float(aux['loss']):.6f} "
+                f"vs {float(ref['loss']):.6f}, largest loss rel diff {rel:.3g} (limit "
+                f"{TRAIN_LOSS_RTOL}), gradients at {gap:.3g} of atol 2e-5 + rtol 2e-3, moe_aux "
+                f"{float(aux['moe_aux']):.4f} -> {'PASS' if good else 'FAIL'}")
+        del params
+    ok &= kernels_idle("train fp32", read_counts())
+    free_cuda()
+    return ok
+
+
+TRAIN_1B = dict(steps=10, batch_size=4, seq_len=1024, save_every=5)
+TRAIN_EXITS = 3  # default_exit_layers(16) = (4, 8, 12)
+H100_BF16_PEAK = PEAK_FLOP_PER_S[torch.bfloat16]
+
+
+def train_model_flops(cfg, b, t, exits) -> float:
+    """Model FLOPs of one training step (forward and backward, 3 x the
+    forward's 2 flops a multiply-add): 6 * tokens * (the layers' matmul
+    weights + the head once for the final CE and once per exit) plus
+    PaLM's attention term 12 * L * tokens * T * Hq * Dh (full T x T
+    scores, as the training layer computes them)."""
+    d, f, hq, hkv, dh = (cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads,
+                         cfg.num_key_value_heads, cfg.head_dim)
+    layer = d * (hq + 2 * hkv) * dh + hq * dh * d + 3 * d * f
+    weights = cfg.num_hidden_layers * layer + (1 + exits) * d * cfg.vocab_size
+    tokens = b * t
+    return 6.0 * tokens * weights + 12.0 * cfg.num_hidden_layers * tokens * t * hq * dh
+
+
+def step_ms_from_log(out: str, tokens_per_step: int):
+    """Per-step wall ms from the CLI's ``step i/n loss=... (R tok/s)`` lines
+    (one a step with ``log_every`` 1): R is tokens since the start over
+    seconds since the start, so line i gives the elapsed seconds; the
+    differences from step 2 on are the steps' times (step 1 carries the
+    first call's set-up)."""
+    rows = [(int(m.group(1)), float(m.group(2)), int(m.group(3))) for m in re.finditer(
+        r"^step (\d+)/\d+ loss=([-\d.naif]+) \((\d+) tok/s\)$", out, re.M)]
+    elapsed = [i * tokens_per_step / rate for i, _, rate in rows]
+    return rows, [1e3 * (b - a) for a, b in zip(elapsed, elapsed[1:])]
+
+
+def llama_1b_training(card, tmp):
+    """Phase 11 (b): Llama-3.2-1B at full width and depth in bf16
+    (``random:1b``) trained through ``cli.train.main`` for 10 steps at B 4
+    x 1024 tokens over a ``custom_jsonl`` corpus (default exits 4/8/12,
+    p_max 0.1, a 1024-token chunked CE, a checkpoint every 5 steps, an
+    export at the end): finite losses, both checkpoints, median step ms,
+    tokens/s, peak memory and MFU against the card's bf16 dense peak; one
+    loss and backward on the trained weights with the chunked and with the
+    dense CE for their peak memory; then the export loaded back (bit-equal
+    to the trained weights) and greedy AR against self-spec (exit 4, W 6),
+    equal up to the first near tie."""
+    import contextlib
+
+    from layerskip_tpu_torch.cli import train
+    from layerskip_tpu_torch.cli.args import Arguments
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.config import GenerationConfig, llama32_1b_config
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.training import recipe
+
+    b, t = TRAIN_1B["batch_size"], TRAIN_1B["seq_len"]
+    corpus = write_jsonl(os.path.join(tmp, "train.jsonl"), entry_prompts(64, seed=31))
+    ckpt, export = os.path.join(tmp, "ckpt"), os.path.join(tmp, "export")
+    targs = train.TrainArguments(dataset="custom_jsonl", data_path=corpus, p_max=0.1,
+                                 ce_chunk_tokens=1024, checkpoint_dir=ckpt, export_dir=export,
+                                 log_every=1, **TRAIN_1B)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        params, history = train.main(Arguments(model="random:1b", device="cuda", seed=0),
+                                     targs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    ok = kernels_idle("train 1b", read_counts())
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[train 1b cli] {line}")
+    rows, step_ms = step_ms_from_log(out, b * t)
+    cfg = llama32_1b_config()
+    flops = train_model_flops(cfg, b, t, TRAIN_EXITS)
+    med = float(np.median(step_ms)) if step_ms else float("nan")
+    losses = [loss for _, loss in history]
+    good = (len(rows) == len(history) == TRAIN_1B["steps"] and all(np.isfinite(losses))
+            and train.checkpoint_steps(ckpt) == [5, 10]
+            and os.path.exists(os.path.join(export, "model.safetensors")))
+    ok &= good
+    stats = dict(step_ms_median=med, step_ms=step_ms, tok_s=b * t / med * 1e3,
+                 mfu=flops / (med * 1e-3) / H100_BF16_PEAK, model_tflop_per_step=flops / 1e12,
+                 peak_gb_run=peak_run / 1e9, losses=losses, cli_wall_s=wall, card=card)
+    log(f"[train 1b] random:1b bf16 (L 16, D 2048, F 8192, V 128256, tied), B {b} x T {t}, "
+        f"exits (4, 8, 12), p_max 0.1, CE chunk 1024: {len(rows)} steps, losses "
+        f"{[round(x, 4) for x in losses]}; step ms median {med:.2f} (steps 2-10 "
+        f"{[round(x, 2) for x in step_ms]}), {stats['tok_s']:.1f} tok/s, model FLOPs "
+        f"(6 tokens (L layer weights + 4 D V) + 12 L tokens T Hq Dh) {flops / 1e12:.2f} "
+        f"TFLOP a step = MFU {stats['mfu']:.4f} of {H100_BF16_PEAK / 1e12:.0f} TFLOP/s; peak memory over the CLI run (optimizer, checkpoints, export) "
+        f"{peak_run / 1e9:.2f} GB; checkpoints {train.checkpoint_steps(ckpt)}; CLI wall "
+        f"{wall:.1f}s -> {'PASS' if good else 'FAIL'} ({card})")
+
+    # peak memory of one loss and backward, chunked against dense CE
+    rng = np.random.default_rng(32)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(b, t))).cuda()
+    labels = torch.roll(ids, -1, dims=1)
+    peaks, ms = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for chunk in (1024, 0):
+        for w in recipe.trainable_tensors(params).values():
+            w.grad = None
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t1 = time.perf_counter()
+        loss, _ = recipe.layerskip_loss(params, cfg, recipe.TrainConfig(ce_chunk_tokens=chunk),
+                                        ids, labels, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms[chunk] = (time.perf_counter() - t1) * 1e3
+        peaks[chunk] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ok &= kernels_idle(f"train 1b ce {chunk}", read_counts()) and bool(torch.isfinite(loss))
+    good = peaks[1024] < peaks[0]
+    ok &= good
+    stats.update(peak_gb_above_weights_chunked=peaks[1024], peak_gb_above_weights_dense=peaks[0],
+                 loss_backward_ms_chunked=ms[1024], loss_backward_ms_dense=ms[0])
+    log(f"[train 1b ce] one loss + backward on the trained weights, peak memory above the "
+        f"weights ({base / 1e9:.2f} GB): chunked CE (1024 tokens) {peaks[1024]:.2f} GB in "
+        f"{ms[1024]:.1f} ms, dense CE {peaks[0]:.2f} GB in {ms[0]:.1f} ms -> "
+        f"{'PASS' if good else 'FAIL'} ({card})")
+
+    trained = {k: w.detach() for k, w in recipe.trainable_tensors(params).items()}
+    del params, loss
+    free_cuda()
+    loaded, cfg2, _ = load_model_and_tokenizer(export, device="cuda")
+    same = all(torch.equal(w, trained[k]) for k, w in recipe.trainable_tensors(loaded).items())
+    del trained
+    free_cuda()
+    eng = Engine(loaded, cfg2, device="cuda")
+    prompt = np.random.default_rng(33).integers(3, cfg2.vocab_size, size=64).tolist()
+    eos = (cfg2.vocab_size + 7,)
+    ar_cfg = GenerationConfig(max_steps=32, sample=False, generation_strategy="autoregressive")
+    sp_cfg = GenerationConfig(max_steps=32, sample=False, generation_strategy="self_speculative",
+                              exit_layer=4, num_speculations=6)
+    ar, t_ar, _, _, _ = generate_timed(eng, prompt, ar_cfg, eos)
+    sp, t_sp, matches, drafts, _ = generate_timed(eng, prompt, sp_cfg, eos)
+    tie, tf_agree, finite = near_tie(loaded, cfg2, prompt, ar)
+    agree = first_diff(ar, sp)
+    good = same and finite and len(ar) == len(sp) == 32 and agree >= tie
+    ok &= good
+    stats.update(export_bit_equal=same, spec_eq_ar=agree, first_tie=tie)
+    log(f"[train 1b export] loaded back bit-equal to the trained weights: {same}; greedy AR "
+        f"vs spec (exit 4, W 6) over 32 tokens: == for {agree} (first top-2 gap < {NEAR_TIE} "
+        f"at {tie}, teacher-forced == AR for {tf_agree}), acceptance {matches}/{drafts} -> "
+        f"{'PASS' if good else 'FAIL'} ({card})")
+    del eng, loaded
+    free_cuda()
+    return ok, stats
+
+
+def moe_3b_training(card):
+    """Phase 11 (c): moe-3b (``random:moe-3b``) at full width in bf16, 3
+    ``train_step``s at B 2 x 1024 tokens (2048 tokens: every MoE layer on
+    the grouped path) with the recipe's defaults (exits 4/8/12, p_max 0.1,
+    CE chunk 1024): finite losses, a positive load-balancing term, router
+    weights changed, step ms, tokens/s and peak memory."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.ops import moe
+    from layerskip_tpu_torch.training import recipe
+
+    b, t, steps = 2, 1024, 3
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, _ = load_model_and_tokenizer("random:moe-3b", device="cuda")
+    router0 = params.layers.w_router.detach().clone()
+    train_step, init_opt = recipe.make_train_step(cfg, recipe.TrainConfig())
+    opt = init_opt(params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(41)
+    reset_counts()
+    moe.reset_path_calls()
+    step_ms, auxes = [], []
+    for step in range(steps):
+        ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(b, t))).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, aux = train_step(params, opt, ids, torch.roll(ids, -1, dims=1), gen, step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        auxes.append({k: float(aux[k]) for k in ("loss", "final_loss", "moe_aux")})
+    peak = torch.cuda.max_memory_allocated()
+    ok = kernels_idle("train moe-3b", read_counts())
+    paths = dict(moe.PATH_CALLS)
+    changed = not torch.equal(router0, params.layers.w_router.detach())
+    nl = cfg.num_hidden_layers
+    good = (all(np.isfinite(a["loss"]) and np.isfinite(a["moe_aux"]) and a["moe_aux"] > 0
+                for a in auxes)
+            and changed and paths == {"few": 0, "dense": 0, "grouped": steps * nl})
+    ok &= good
+    med = float(np.median(step_ms[1:]))
+    stats = dict(step_ms=step_ms, step_ms_median=med, tok_s=b * t / med * 1e3,
+                 peak_gb=peak / 1e9, aux=auxes, paths=paths, card=card)
+    log(f"[train moe-3b] random:moe-3b bf16 (L 16, D 2048, 8 experts top 2, V 32000), B {b} x "
+        f"T {t}, 3 steps: {auxes}; moe_mlp paths {paths} (want grouped {steps * nl}); router "
+        f"changed: {changed}; step ms {[round(x, 2) for x in step_ms]} (median of steps 2-3 "
+        f"{med:.2f}, {stats['tok_s']:.1f} tok/s); peak memory {peak / 1e9:.2f} GB -> "
+        f"{'PASS' if good else 'FAIL'} ({card})")
+    del params, opt, router0
+    free_cuda()
+    return ok, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2579,6 +2888,14 @@ def main() -> int:
     log(f"[phase 10 launches] (a) {json.dumps(fcounts)}; (b) {json.dumps(gcounts)}; "
         f"(c) {json.dumps(mcounts)}; K2 and K3 launched at Dh 256: {k23_dh256}")
     log(f"[phase 10] {time.time() - t0:.1f}s")
+    free_cuda()
+    t0 = time.time()
+    ok_train = training_fp32_card_vs_cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        ok_train_1b, tstats = llama_1b_training(card, tmp)
+    ok_train_moe, tmstats = moe_3b_training(card)
+    ok_train &= ok_train_1b and ok_train_moe
+    log(f"[phase 11] {time.time() - t0:.1f}s")
     # phases 5-8, 9 (b) and 10 (b)-(c) run in bf16 (9 (b)'s fp32 check only
     # adds K2 launches): every K1 launch must take the tensor-core route
     for more in (qcounts, scounts, ecounts, dfcounts, gcounts, mcounts):
@@ -2602,12 +2919,12 @@ def main() -> int:
             counts[k] += v
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
-        f"drafting={ok_draft} families={ok_fam} {json.dumps(stats)} {json.dumps(qstats)} "
-        f"{json.dumps(sstats)} {json.dumps(estats)} {json.dumps(dstats)} "
-        f"{json.dumps(gstats)} {json.dumps(mstats)} launches={json.dumps(counts)} total "
-        f"{time.time() - t_start:.1f}s")
+        f"drafting={ok_draft} families={ok_fam} training={ok_train} {json.dumps(stats)} "
+        f"{json.dumps(qstats)} {json.dumps(sstats)} {json.dumps(estats)} {json.dumps(dstats)} "
+        f"{json.dumps(gstats)} {json.dumps(mstats)} {json.dumps(tstats)} {json.dumps(tmstats)} "
+        f"launches={json.dumps(counts)} total {time.time() - t_start:.1f}s")
     if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry
-            and ok_draft and ok_fam):
+            and ok_draft and ok_fam and ok_train):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]

@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 
 from layerskip_tpu_torch.config import PRESETS, ModelConfig, tiny_config
-from layerskip_tpu_torch.device import resolve_device
+from layerskip_tpu_torch.device import refuse_parallelism, resolve_device
 from layerskip_tpu_torch.models.llama import LlamaParams
 from layerskip_tpu_torch.models.params import init_params, load_params
 
@@ -75,7 +75,7 @@ def maybe_shard(params: LlamaParams, dp: int = 1, tp: int = 1) -> LlamaParams:
     port runs on one device until its parallelism slice, so anything but
     dp = tp = 1 raises."""
     if dp != 1 or tp != 1:
-        raise NotImplementedError(f"dp={dp} tp={tp}: sharding is not ported yet")
+        refuse_parallelism(f"dp={dp} tp={tp}")
     return params
 
 

@@ -27,3 +27,11 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def refuse_parallelism(setting: str) -> None:
+    """Raise for a setting of the JAX package's device mesh (dp, tp, fsdp,
+    sequence-sharded activations, ring attention): the port runs on one
+    device until its parallelism slice, and every such setting is refused
+    here, in the same words."""
+    raise NotImplementedError(f"{setting}: sharding is not ported yet")

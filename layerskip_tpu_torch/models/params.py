@@ -319,7 +319,9 @@ def params_from_torch_state_dict(state_dict: Mapping, cfg: ModelConfig,
 
 def load_params(model_dir: str, cfg: ModelConfig, device="cuda") -> LlamaParams:
     """Params from a local HF checkpoint directory of ``*.safetensors``
-    shards, read by the port's own reader (F32, F16, BF16 tensors)."""
+    shards, read by the port's own reader. Tensors of names the model does
+    not read are decoded (any dtype the JAX package's reader takes) and
+    then ignored."""
     shards = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
     if not shards:
         raise FileNotFoundError(f"no safetensors shards under {model_dir}")

@@ -19,13 +19,19 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-# safetensors dtype tag -> (numpy dtype of the raw buffer, torch dtype)
+# safetensors dtype tag -> (numpy dtype of the raw buffer, torch dtype): the
+# tags the JAX package's reader decodes (layerskip_tpu/native.py)
 _DTYPES = {
+    "F64": (np.float64, torch.float64),
     "F32": (np.float32, torch.float32),
     "F16": (np.float16, torch.float16),
     "BF16": (np.uint16, torch.bfloat16),
+    "I64": (np.int64, torch.int64),
+    "I32": (np.int32, torch.int32),
+    "I16": (np.int16, torch.int16),
     "I8": (np.int8, torch.int8),
     "U8": (np.uint8, torch.uint8),
+    "BOOL": (np.bool_, torch.bool),
 }
 _TAGS = {tdt: tag for tag, (_, tdt) in _DTYPES.items()}
 
@@ -63,7 +69,7 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
 
 def save_file(tensors: Dict[str, torch.Tensor], path: str,
               metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write ``tensors`` (any device; F32, F16, BF16, I8 or U8) to ``path``:
+    """Write ``tensors`` (any device, any dtype of ``_DTYPES``) to ``path``:
     the header padded with spaces to a multiple of 8 bytes, then the buffers
     back to back in name order (the format allows no gaps between them).
     One tensor at a time is copied to the host."""

@@ -116,10 +116,19 @@ def _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts: int) -> torch.Te
     return torch.einsum("nef,efd->nd", a, _dense(w_down, dt))
 
 
+def _per_expert(w):
+    """The experts of a stacked [E, ...] weight: a tensor's by one
+    ``unbind`` (in training its backward stacks the experts' gradients
+    once, where indexing per expert would add E stack-sized ones), a
+    QuantTensor indexed as it is."""
+    return w if isinstance(w, QuantTensor) else w.unbind(0)
+
+
 def _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
                  k: int) -> torch.Tensor:
     """Sort by expert, then one product per expert's segment."""
     n, dt = x2.shape[0], x2.dtype
+    w_gate, w_up, w_down = map(_per_expert, (w_gate, w_up, w_down))
     flat_e = topi.reshape(n * k)
     order = torch.argsort(flat_e, stable=True)  # token order kept within an expert
     tok = torch.div(order, k, rounding_mode="floor")

@@ -155,7 +155,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
-             "I8": torch.int8, "U8": torch.uint8}
+             "I8": torch.int8, "U8": torch.uint8, "F64": torch.float64,
+             "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+             "BOOL": torch.bool}
 
 
 def _st_tensors(dtype):
@@ -163,7 +165,8 @@ def _st_tensors(dtype):
     if dtype.is_floating_point:
         make = lambda *s: torch.randn(s, generator=g).to(dtype)  # noqa: E731
     else:
-        lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+        lo, hi = {torch.int8: (-128, 128), torch.uint8: (0, 256),
+                  torch.bool: (0, 2)}.get(dtype, (-30000, 30000))
         make = lambda *s: torch.randint(lo, hi, s, generator=g).to(dtype)  # noqa: E731
     return {"model.a": make(3, 5), "model.b": make(7), "c": make(2, 1, 4), "s": make()}
 
@@ -200,6 +203,33 @@ def test_jax_checkpoint_loads_bit_exactly(jax_ckpt):
     cfg = tiny_config(**SIZES)
     _assert_same_params(tparams.load_params(d, cfg, device="cpu"),
                         tparams.params_from_numpy(jp, device="cpu"))
+
+
+def test_jax_checkpoint_with_an_unread_int64_tensor_loads(jax_ckpt, tmp_path):
+    """A checkpoint that also holds a tensor the model never reads, in a
+    dtype outside the model's (an int64 ``model.extra_position_ids``), loads
+    as the JAX package loads it: the extra name is decoded and ignored, and
+    every model tensor is bit-equal to the JAX load."""
+    import safetensors.numpy
+
+    d, _ = jax_ckpt
+    tensors = safetensors.numpy.load_file(os.path.join(d, "model.safetensors"))
+    tensors["model.extra_position_ids"] = np.arange(12, dtype=np.int64).reshape(1, 12)
+    safetensors.numpy.save_file(tensors, str(tmp_path / "model.safetensors"),
+                                metadata={"format": "pt"})
+    with open(os.path.join(d, "config.json")) as src:
+        (tmp_path / "config.json").write_text(src.read())
+    jcfg = JModelConfig.from_pretrained(str(tmp_path), dtype=jnp.float32)
+    want = jparams.load_params(str(tmp_path), jcfg)
+    got = tparams.load_params(str(tmp_path), tiny_config(**SIZES), device="cpu")
+    for f in FIELDS:
+        assert np.array_equal(_bits(getattr(got.layers, f).numpy()),
+                              _bits(getattr(want.layers, f))), f
+    for f in ("embed", "final_norm", "lm_head"):
+        assert np.array_equal(_bits(getattr(got, f).numpy()), _bits(getattr(want, f))), f
+    read = safetensors_io.load_file(str(tmp_path / "model.safetensors"))
+    assert read["model.extra_position_ids"].dtype == torch.int64
+    assert read["model.extra_position_ids"].tolist() == [list(range(12))]
 
 
 def test_port_checkpoint_loads_bit_exactly_in_jax(jax_ckpt, tmp_path):
