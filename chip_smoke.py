@@ -106,9 +106,26 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      moe-3b at full width in bf16, 3 steps at B 2 x 1024 on the grouped MoE
      path, a positive load-balancing term, the router trained; no K1-K7
      launch in any training run (they have no backward);
+  12. inference parallelism (``layerskip_tpu_torch/parallel``): ranks
+     started by the port's launcher as processes of this script
+     (``--phase12 SUITE DIR``), sharing the one card over gloo: (a) phase
+     4's fp32 model at tp 2 (AR, spec, tree k 3, the int8 and int4
+     drafters, 2-slot paged + prefix + tree sessions over the fp32 (K2) and
+     int8 (K3) pools, a chunked insert) and at sp 2 (AR, spec), then over
+     four ranks a dp 2 x tp 2 forward over B 2, AR at sp 2 x tp 2 and
+     phase 10 (a)'s Mixtral-style MoE at ep 2 x tp 2 (AR, spec): every
+     stream == the single-process stream exactly, and K1, K2 (tree clause),
+     K3 and K4-K7 launched on each rank; (b) ``random:7b?tail_eps=0&
+     tail_from=8`` at tp 2 (AR, spec; phase 5's prompt and steps), a
+     2000-token prompt at sp 2 and moe-3b at ep 2, each == the
+     single-device stream up to its first near tie, with tok/s, launches
+     and peak memory per rank (not a speed of parallelism: both ranks share
+     the card and the collectives cross the host); (c) a world-size-1 NCCL
+     group running the tp 1 path with its collectives issued, and, with two
+     cards or more, (b)'s tp 2 leg over NCCL, one rank a card;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
-Every kernel count is set to 0 just before each run of phases 5 to 11 and
-read just after it (K2's and K3's tree-clause launches too; phase 11's must
+Every kernel count is set to 0 just before each run of phases 5 to 12 and
+read just after it (in phase 12 on every rank) (K2's and K3's tree-clause launches too; phase 11's must
 stay 0); every K1 and
 K4-K7 launch of the bf16 runs must have taken the tensor-core route, and
 every one of phase 4, phase 8's fp32 checkpoint, phase 9 (a) and phase 10
@@ -2812,6 +2829,438 @@ def moe_3b_training(card):
     return ok, stats
 
 
+# ------------------------------------------------------------ phase 12
+
+# Phase 12 runs its ranks as processes of this script (``--phase12 SUITE
+# DIR``) started by the port's launcher: on one card they share it over
+# gloo, whose collectives cross the host. Each rank writes its results to
+# DIR/rank<r>.json; the main process compares them.
+
+P12_STEPS = 48  # phase 4's fp32 streams
+P12_SPEC = dict(generation_strategy="self_speculative", exit_layer=2, num_speculations=4)
+P12_STREAMS = (  # (label, GenerationConfig fields) of (a)'s tp 2 streams
+    ("ar", dict(generation_strategy="autoregressive")), ("spec", P12_SPEC),
+    ("tree3", dict(P12_SPEC, spec_tree_width=3)), ("draft8", dict(P12_SPEC, draft_quant=8)),
+    ("draft4", dict(P12_SPEC, draft_quant=4)))
+P12_LONG, P12_LONG_STEPS = 2000, 32  # (b)'s sp 2 prompt and steps
+P12_MOE_STEPS = 64
+SEVEN_B = "random:7b?tail_eps=0&tail_from=8"
+MOE_3B = f"random:moe-3b?tail_eps=0&tail_from={MOE_EXIT}"
+# every kernel must launch on every rank of (a)'s two-rank run
+P12_KERNELS = ("flash_prefill", "paged_decode_attention_tree", "paged_decode_attention_q8",
+               "quant_matmul_t", "quant_matmul", "int4_matmul", "int4_matmul_t")
+
+
+def p12_tokens(eng, prompt, eos, max_steps, **kw):
+    from layerskip_tpu_torch.config import GenerationConfig
+
+    out = eng.generate(prompt, GenerationConfig(max_steps=max_steps, sample=False, **kw),
+                       eos_ids=eos)
+    return out.tokens[0, :int(out.num_tokens[0])].tolist()[:max_steps]
+
+
+def p12_session(eng, gen, prompts, budgets, chunked, **kw):
+    """{request: tokens} of a 2-slot session: requests 0 and 1 (1 through a
+    chunked insert when asked), then 2 and 3 into the same slots."""
+    eos = (eng.cfg.vocab_size + 7,)
+    sess = eng.continuous_session(gen, batch=2, prompt_bucket=64, eos_ids=eos, **kw)
+    got = {}
+    for wave in (0, 2):
+        if chunked:
+            sess.insert([0], [prompts[wave]], max_tokens=[budgets[wave]])
+            sess.begin_chunked_insert([1], [prompts[wave + 1]], max_tokens=[budgets[wave + 1]],
+                                      chunk_tokens=16)
+        else:
+            sess.insert([0, 1], prompts[wave:wave + 2], max_tokens=budgets[wave:wave + 2])
+        while sess.has_active() or sess.has_pending_prefill():
+            for r, toks, _ in sess.step(max_rounds=2):
+                got[wave + r] = toks
+    return got
+
+
+P12_SESSIONS = (  # (label, GenerationConfig fields, continuous_session keywords, chunked)
+    ("paged tree prefix, fp32 pool (K2)", dict(P12_SPEC, spec_tree_width=2),
+     dict(paged_pool_pages=40, page_size=16, prefix_cache=True), False),
+    ("paged tree prefix, int8 pool (K3)", dict(P12_SPEC, spec_tree_width=2, kv_quant=True),
+     dict(paged_pool_pages=40, page_size=16, prefix_cache=True), False),
+    ("chunked insert, contiguous", P12_SPEC, {}, True),
+)
+
+
+def p12_fp32_w2(rank):
+    """(a) on two ranks: phase 4's model at tp 2 (AR, spec, tree k 3, the
+    int8 and int4 drafters, three sessions) and at sp 2 (AR, spec), each
+    == the same rank's single-device run; kernel launches of the sharded
+    runs."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
+    from layerskip_tpu_torch.parallel.mesh import make_mesh, make_sp_mesh
+    from layerskip_tpu_torch.parallel.sharding import shard_params
+
+    cfg, params = small_fp32_model()
+    prompt = np.random.default_rng(1).integers(3, cfg.vocab_size, size=200).tolist()
+    eos = (cfg.vocab_size + 7,)
+    solo = Engine(params, cfg, device="cuda")
+    want = {label: p12_tokens(solo, prompt, eos, P12_STEPS, **kw) for label, kw in P12_STREAMS}
+    rng = np.random.default_rng(6)
+    shared = rng.integers(3, cfg.vocab_size, size=32).tolist()  # two pages of 16
+    prompts = [shared + rng.integers(3, cfg.vocab_size, size=n).tolist() for n in (9, 20)] + [
+        shared + rng.integers(3, cfg.vocab_size, size=14).tolist(),
+        rng.integers(3, cfg.vocab_size, size=40).tolist()]
+    budgets = [30, 17, 24, 30]
+    solo_served = {label: [postprocess_output(solo.generate(p, GenerationConfig(
+        max_steps=m, sample=False, **g), eos_ids=eos), eos, m) for p, m in zip(prompts, budgets)]
+        for label, g, _, _ in P12_SESSIONS}
+
+    mesh = make_mesh(1, 2)
+    local, _ = shard_params(params, mesh, cfg)
+    eng = Engine(local, cfg, device="cuda", mesh=mesh)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {label: p12_tokens(eng, prompt, eos, P12_STEPS, **kw) for label, kw in P12_STREAMS}
+    served = {label: p12_session(eng, dc.replace(GenerationConfig(max_steps=max(budgets),
+                                                                  sample=False), **g),
+                                 prompts, budgets, chunked, **kw)
+              for label, g, kw, chunked in P12_SESSIONS}
+    tp_secs = time.perf_counter() - t0
+    counts = read_counts()
+    sp = make_sp_mesh(2)
+    speng = Engine(params, cfg, device="cuda", mesh=sp, kv_shard_axis="sp")
+    reset_counts()
+    sp_got = {label: p12_tokens(speng, prompt, eos, P12_STEPS, **kw)
+              for label, kw in P12_STREAMS[:2]}
+    sp_counts = read_counts()
+    return dict(want=want, got=got, sp_got=sp_got, tp_secs=tp_secs, counts=counts,
+                sp_counts=sp_counts, served={k: [v[i] for i in range(4)] for k, v in served.items()},
+                solo_served=solo_served)
+
+
+def p12_fp32_w4(rank):
+    """(a) on four ranks: a dp 2 x tp 2 forward over B 2, AR at sp 2 x tp 2
+    and phase 10 (a)'s Mixtral-style MoE at ep 2 x tp 2 (AR, spec)."""
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.models import llama
+    from layerskip_tpu_torch.ops.kv_cache import init_kv_cache
+    from layerskip_tpu_torch.parallel.collectives import all_gather, sharded
+    from layerskip_tpu_torch.parallel.mesh import make_mesh, make_sp_mesh
+    from layerskip_tpu_torch.parallel.sharding import shard_params
+
+    cfg, params = small_fp32_model()
+    ids = torch.from_numpy(np.random.default_rng(3).integers(3, cfg.vocab_size, size=(2, 64)))
+    ids = ids.cuda()
+    with torch.inference_mode():
+        want = llama.forward(params, cfg, ids, init_kv_cache(cfg, 2, 64, device="cuda"),
+                             0).logits
+        mesh = make_mesh(2, 2)
+        local, ctx = shard_params(params, mesh, cfg)
+        with sharded(ctx):
+            row = ids[ctx.dp.rank:ctx.dp.rank + 1]
+            got = all_gather(llama.forward(local, cfg, row, init_kv_cache(cfg, 1, 64,
+                                                                          device="cuda"),
+                                           0).logits, ctx.dp, 0)
+    fwd = dict(max_abs_err=float((got - want).abs().max()),
+               argmax_equal=bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+    prompt = np.random.default_rng(1).integers(3, cfg.vocab_size, size=200).tolist()
+    eos = (cfg.vocab_size + 7,)
+    sptp = make_sp_mesh(2, 2)
+    local, _ = shard_params(params, sptp, cfg, kv_shard_axis="sp")
+    reset_counts()
+    sptp_ar = p12_tokens(Engine(local, cfg, device="cuda", mesh=sptp, kv_shard_axis="sp"),
+                         prompt, eos, P12_STEPS)
+    counts = read_counts()
+    sptp_want = p12_tokens(Engine(params, cfg, device="cuda"), prompt, eos, P12_STEPS)
+    mcfg, mparams = family_model("mixtral")
+    msolo = Engine(mparams, mcfg, device="cuda")
+    moe_want = {label: p12_tokens(msolo, prompt, eos, FAMILY_STEPS, **kw)
+                for label, kw in P12_STREAMS[:2]}
+    eptp = make_mesh(1, 2, ep=2)
+    mlocal, _ = shard_params(mparams, eptp, mcfg)
+    meng = Engine(mlocal, mcfg, device="cuda", mesh=eptp)
+    reset_counts()
+    moe_got = {label: p12_tokens(meng, prompt, eos, FAMILY_STEPS, **kw)
+               for label, kw in P12_STREAMS[:2]}
+    moe_counts = read_counts()
+    return dict(forward=fwd, sptp_ar=sptp_ar, sptp_want=sptp_want, counts=counts,
+                moe_got=moe_got, moe_want=moe_want, moe_counts=moe_counts,
+                moe_shapes=[list(mlocal.layers.w_gate.shape), list(mlocal.layers.w_down.shape)])
+
+
+def p12_timed(eng, prompt, eos, max_steps, **kw):
+    """(tokens, tok/s, launches) of one run, counts from 0, after a warm-up."""
+    from layerskip_tpu_torch.config import GenerationConfig
+
+    eng.generate(prompt, GenerationConfig(max_steps=4, sample=False, **kw), eos_ids=eos)
+    torch.cuda.synchronize()
+    toks, secs, matches, drafts, counts = generate_timed(
+        eng, prompt, GenerationConfig(max_steps=max_steps, sample=False, **kw), eos)
+    return dict(tokens=toks, tok_s=len(toks) / secs, matches=matches, drafts=drafts,
+                counts=counts)
+
+
+def p12_7b_tp2(rank):
+    """(b) 7B (``random:7b?tail_eps=0&tail_from=8``) at tp 2 through the
+    loader: AR and spec (exit 8, W 6), phase 5's prompt and steps."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer, mesh_for
+    from layerskip_tpu_torch.generation.engine import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, _ = load_model_and_tokenizer(SEVEN_B, tp=2, device="cuda")
+    eng = Engine(params, cfg, device="cuda", mesh=mesh_for(1, 2))
+    prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
+    eos = (cfg.vocab_size + 7,)
+    out = dict(ar=p12_timed(eng, prompt, eos, FULL_STEPS),
+               spec=p12_timed(eng, prompt, eos, FULL_STEPS, generation_strategy=
+                              "self_speculative", exit_layer=FULL_EXIT,
+                              num_speculations=FULL_W),
+               wq_rows=int(params.layers.wq.shape[1]), wo_k=int(params.layers.wo.shape[1]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def p12_bf16_w2(rank):
+    """(b) on two ranks: 7B at tp 2, 7B at sp 2 (a 2000-token prompt, AR)
+    and moe-3b at ep 2 (AR, spec; exit 4, W 6)."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.parallel.mesh import make_mesh, make_sp_mesh
+    from layerskip_tpu_torch.parallel.sharding import shard_params
+
+    res = dict(tp=p12_7b_tp2(rank))
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, _ = load_model_and_tokenizer(SEVEN_B, device="cuda")
+    eng = Engine(params, cfg, device="cuda", mesh=make_sp_mesh(2), kv_shard_axis="sp")
+    long = np.random.default_rng(4).integers(3, cfg.vocab_size, size=P12_LONG).tolist()
+    res["sp"] = p12_timed(eng, long, (cfg.vocab_size + 7,), P12_LONG_STEPS)
+    res["sp"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del eng, params
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, _ = load_model_and_tokenizer(MOE_3B, device="cuda")
+    mesh = make_mesh(1, 1, ep=2)
+    local, _ = shard_params(params, mesh, cfg)
+    del params
+    free_cuda()
+    eng = Engine(local, cfg, device="cuda", mesh=mesh)
+    prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
+    eos = (cfg.vocab_size + 7,)
+    res["moe"] = dict(ar=p12_timed(eng, prompt, eos, P12_MOE_STEPS),
+                      spec=p12_timed(eng, prompt, eos, P12_MOE_STEPS, generation_strategy=
+                                     "self_speculative", exit_layer=MOE_EXIT,
+                                     num_speculations=FULL_W),
+                      experts=int(local.layers.w_gate.shape[1]))
+    res["moe"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def p12_nccl1(rank):
+    """(c) a world-size-1 NCCL group: the collectives on it, then phase 4's
+    model on the tp 1 path with every layer's collectives issued over it."""
+    import torch.distributed as dist
+
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.parallel import collectives as coll
+
+    world = coll.Axis(group=dist.group.WORLD, size=1, rank=0)
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    checks = dict(
+        sum=bool(torch.equal(coll.all_reduce(x, world), x)),
+        max=bool(torch.equal(coll.all_reduce(x, world, "max"), x)),
+        gather=bool(torch.equal(coll.all_gather(x[None], world, 0), x[None])),
+        backend=dist.get_backend())
+    cfg, params = small_fp32_model()
+    prompt = np.random.default_rng(1).integers(3, cfg.vocab_size, size=200).tolist()
+    eos = (cfg.vocab_size + 7,)
+    want = p12_tokens(Engine(params, cfg, device="cuda"), prompt, eos, P12_STEPS, **P12_SPEC)
+    eng = Engine(params, cfg, device="cuda")
+    eng.shard = coll.ShardContext(tp=world)  # the tp 1 path, collectives issued
+    coll.reset_calls()
+    got = p12_tokens(eng, prompt, eos, P12_STEPS, **P12_SPEC)
+    return dict(checks=checks, equal=got == want, calls=dict(coll.CALLS))
+
+
+P12_SUITES = {"fp32_w2": p12_fp32_w2, "fp32_w4": p12_fp32_w4, "bf16_w2": p12_bf16_w2,
+              "7b_tp2": p12_7b_tp2, "nccl1": p12_nccl1}
+
+
+def phase12_rank(suite: str, work: str) -> int:
+    """A rank of a phase 12 suite (under the port's launcher)."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from layerskip_tpu_torch.parallel.distributed import BACKEND_ENV, INIT_ENV, setup, teardown
+
+    backend = os.environ[BACKEND_ENV]
+    if int(os.environ["WORLD_SIZE"]) == 1:  # setup joins no group for a world of one
+        dist.init_process_group(backend, init_method=os.environ[INIT_ENV], world_size=1,
+                                rank=0)
+    setup(backend)
+    rank = dist.get_rank()
+    res = P12_SUITES[suite](rank)
+    res.update(rank=rank, backend=dist.get_backend(), device=torch.cuda.current_device())
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    teardown()
+    return 0
+
+
+def phase12_launch(suite: str, nproc: int, backend: str = "gloo"):
+    """Every rank's results of ``suite`` over ``nproc`` ranks of the port's
+    launcher; a failing rank fails the phase (its traceback on stderr)."""
+    from layerskip_tpu_torch.parallel.launch import launch
+
+    with tempfile.TemporaryDirectory() as work:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.time()
+        rc = launch([os.path.abspath(__file__), "--phase12", suite, work], nproc, backend,
+                    env=env, timeout=600)
+        log(f"[phase 12] {suite}: {nproc} ranks over {backend}, exit code {rc}, "
+            f"{time.time() - t0:.1f}s")
+        if rc != 0:
+            raise RuntimeError(f"phase 12 suite {suite} failed with exit code {rc}")
+        return [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(nproc)]
+
+
+def phase12_fp32():
+    """(a): every sharded stream == the single-process stream exactly, the
+    dp x tp forward's argmax == the single device's, and K1, K2 (tree
+    clause), K3 and K4-K7 launched on each rank of the two-rank run."""
+    ok, total = True, {}
+    w2 = phase12_launch("fp32_w2", 2)
+    for r in w2:
+        same = {k: r["got"][k] == r["want"][k] for k in r["want"]}
+        sp_same = {k: r["sp_got"][k] == r["want"][k] for k in r["sp_got"]}
+        served = {k: r["served"][k] == r["solo_served"][k] for k in r["served"]}
+        launched = {k: r["counts"][k] for k in P12_KERNELS}
+        good = (all(same.values()) and all(sp_same.values()) and all(served.values())
+                and all(v > 0 for v in launched.values())
+                and r["sp_counts"]["flash_prefill"] == 0)
+        ok &= good
+        for k, v in r["counts"].items():
+            total[k] = total.get(k, 0) + v + r["sp_counts"][k]
+        log(f"[phase 12 (a)] rank {r['rank']} tp 2: == single process {same}; sessions == "
+            f"solo {served}; sp 2: {sp_same} (K1 launches under sp "
+            f"{r['sp_counts']['flash_prefill']}, want 0); launches {json.dumps(launched)} "
+            f"(each > 0) -> {'PASS' if good else 'FAIL'}")
+    w4 = phase12_launch("fp32_w4", 4)
+    for r in w4:
+        good = (r["forward"]["argmax_equal"] and r["forward"]["max_abs_err"] < 1e-3
+                and r["sptp_ar"] == r["sptp_want"] and r["moe_got"] == r["moe_want"]
+                and r["moe_shapes"] == [[4, 2, 256, 256], [4, 2, 256, 256]])
+        ok &= good
+        for counts in (r["counts"], r["moe_counts"]):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        log(f"[phase 12 (a)] rank {r['rank']} dp 2 x tp 2 forward: max abs err "
+            f"{r['forward']['max_abs_err']:.3g}, argmax equal {r['forward']['argmax_equal']}; "
+            f"sp 2 x tp 2 AR == single process {r['sptp_ar'] == r['sptp_want']}; MoE ep 2 x "
+            f"tp 2 (local w_gate {r['moe_shapes'][0]}) AR/spec == single process "
+            f"{r['moe_got'] == r['moe_want']} -> {'PASS' if good else 'FAIL'}")
+    return ok, total
+
+
+def phase12_full_width(card):
+    """(b): the single-device references in this process, then the ranks;
+    each sharded stream == its reference up to the reference's first near
+    tie (top-2 gap under NEAR_TIE on the teacher-forced fp32 logits)."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.generation.engine import Engine
+
+    refs = {}
+    params, cfg, _ = load_model_and_tokenizer(SEVEN_B, device="cuda")
+    eng = Engine(params, cfg, device="cuda")
+    eos = (cfg.vocab_size + 7,)
+    prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
+    spec = dict(generation_strategy="self_speculative", exit_layer=FULL_EXIT,
+                num_speculations=FULL_W)
+    ar = p12_tokens(eng, prompt, eos, FULL_STEPS)
+    refs["tp"] = dict(ar=ar, spec=p12_tokens(eng, prompt, eos, FULL_STEPS, **spec),
+                      tie=near_tie(params, cfg, prompt, ar)[0])
+    long = np.random.default_rng(4).integers(3, cfg.vocab_size, size=P12_LONG).tolist()
+    ar = p12_tokens(eng, long, eos, P12_LONG_STEPS)
+    refs["sp"] = dict(ar=ar, tie=near_tie(params, cfg, long, ar)[0])
+    del eng, params
+    free_cuda()
+    params, cfg, _ = load_model_and_tokenizer(MOE_3B, device="cuda")
+    eng = Engine(params, cfg, device="cuda")
+    ar = p12_tokens(eng, prompt, eos, P12_MOE_STEPS)
+    refs["moe"] = dict(ar=ar, spec=p12_tokens(eng, prompt, eos, P12_MOE_STEPS,
+                                              **dict(spec, exit_layer=MOE_EXIT)),
+                       tie=near_tie(params, cfg, prompt, ar)[0])
+    del eng, params
+    free_cuda()
+
+    ok, total = True, {}
+    ranks = phase12_launch("bf16_w2", 2)
+    for r in ranks:
+        tp, sp, moe_ = r["tp"], r["sp"], r["moe"]
+        agree = dict(
+            tp_ar=first_diff(tp["ar"]["tokens"], refs["tp"]["ar"]),
+            tp_spec=first_diff(tp["spec"]["tokens"], refs["tp"]["spec"]),
+            sp_ar=first_diff(sp["tokens"], refs["sp"]["ar"]),
+            moe_ar=first_diff(moe_["ar"]["tokens"], refs["moe"]["ar"]),
+            moe_spec=first_diff(moe_["spec"]["tokens"], refs["moe"]["spec"]))
+        tie = dict(tp_ar=refs["tp"]["tie"], tp_spec=refs["tp"]["tie"], sp_ar=refs["sp"]["tie"],
+                   moe_ar=refs["moe"]["tie"], moe_spec=refs["moe"]["tie"])
+        good = (all(agree[k] >= tie[k] for k in agree)
+                and len(tp["ar"]["tokens"]) == len(tp["spec"]["tokens"]) == FULL_STEPS
+                and len(sp["tokens"]) == P12_LONG_STEPS
+                and tp["wq_rows"] == 2048 and tp["wo_k"] == 2048 and moe_["experts"] == 4
+                and tp["ar"]["counts"]["flash_prefill"] == 32
+                and sp["counts"]["flash_prefill"] == 0)
+        ok &= good
+        for run in (tp["ar"], tp["spec"], sp, moe_["ar"], moe_["spec"]):
+            for k, v in run["counts"].items():
+                total[k] = total.get(k, 0) + v
+        log(f"[phase 12 (b)] rank {r['rank']} ({r['backend']}, card {r['device']}): 7B tp 2 "
+            f"(local wq rows {tp['wq_rows']}, wo K {tp['wo_k']}) AR {tp['ar']['tok_s']:.2f} "
+            f"tok/s, spec {tp['spec']['tok_s']:.2f} tok/s (acceptance "
+            f"{tp['spec']['matches']}/{tp['spec']['drafts']}), peak {tp['peak_gb']:.2f} GB, "
+            f"launches AR {json.dumps({k: v for k, v in tp['ar']['counts'].items() if v})} "
+            f"spec {json.dumps({k: v for k, v in tp['spec']['counts'].items() if v})}; 7B sp 2 "
+            f"{P12_LONG}-token prompt AR {sp['tok_s']:.2f} tok/s, peak {sp['peak_gb']:.2f} GB; "
+            f"moe-3b ep 2 ({moe_['experts']} experts a rank) AR {moe_['ar']['tok_s']:.2f} "
+            f"tok/s, spec {moe_['spec']['tok_s']:.2f} tok/s, peak {moe_['peak_gb']:.2f} GB; "
+            f"== single device for {json.dumps(agree)} tokens (first near tie at "
+            f"{json.dumps(tie)}) -> {'PASS' if good else 'FAIL'} ({card}; both ranks share "
+            f"this one card and their collectives cross the host over gloo: these times "
+            f"are not a speed of tensor, sequence or expert parallelism)")
+    return ok, total, refs
+
+
+def phase12_nccl(card, refs):
+    """(c): the NCCL world-size-1 leg; with two cards or more also 7B at tp 2
+    over NCCL, one rank a card."""
+    (r,) = phase12_launch("nccl1", 1, backend="nccl")
+    ok = (r["equal"] and all(v is True for k, v in r["checks"].items() if k != "backend")
+          and r["checks"]["backend"] == "nccl" and r["calls"]["all_reduce"] > 0
+          and r["calls"]["all_gather"] > 0)
+    log(f"[phase 12 (c)] NCCL world of 1: collectives {json.dumps(r['checks'])}, phase 4's "
+        f"spec stream on the tp 1 path with its collectives issued ({json.dumps(r['calls'])}) "
+        f"== plain: {r['equal']} -> {'PASS' if ok else 'FAIL'}")
+    total = {}
+    if torch.cuda.device_count() < 2:
+        log(f"[phase 12 (c)] 7B tp 2 over NCCL, one rank a card: not run, this machine has "
+            f"{torch.cuda.device_count()} card ({card}); multi-rank NCCL stays unverified here")
+        return ok, total
+    for r in phase12_launch("7b_tp2", 2, backend="nccl"):
+        agree = (first_diff(r["ar"]["tokens"], refs["tp"]["ar"]),
+                 first_diff(r["spec"]["tokens"], refs["tp"]["spec"]))
+        good = min(agree) >= refs["tp"]["tie"] and r["device"] == r["rank"]
+        ok &= good
+        for run in (r["ar"], r["spec"]):
+            for k, v in run["counts"].items():
+                total[k] = total.get(k, 0) + v
+        log(f"[phase 12 (c)] rank {r['rank']} on card {r['device']} over NCCL: 7B tp 2 AR "
+            f"{r['ar']['tok_s']:.2f} tok/s, spec {r['spec']['tok_s']:.2f} tok/s, == single "
+            f"device for (AR, spec) {agree} tokens (first near tie {refs['tp']['tie']}) -> "
+            f"{'PASS' if good else 'FAIL'} ({card})")
+    return ok, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2896,6 +3345,15 @@ def main() -> int:
     ok_train_moe, tmstats = moe_3b_training(card)
     ok_train &= ok_train_1b and ok_train_moe
     log(f"[phase 11] {time.time() - t0:.1f}s")
+    free_cuda()
+    t0 = time.time()
+    ok_par, pcounts = phase12_fp32()
+    ok_par_full, pfcounts, refs = phase12_full_width(card)
+    ok_nccl, pncounts = phase12_nccl(card, refs)
+    ok_par &= ok_par_full and ok_nccl
+    log(f"[phase 12 launches] (a) {json.dumps(pcounts)}; (b) {json.dumps(pfcounts)}; "
+        f"(c) {json.dumps(pncounts)}, summed over the ranks")
+    log(f"[phase 12] {time.time() - t0:.1f}s")
     # phases 5-8, 9 (b) and 10 (b)-(c) run in bf16 (9 (b)'s fp32 check only
     # adds K2 launches): every K1 launch must take the tensor-core route
     for more in (qcounts, scounts, ecounts, dfcounts, gcounts, mcounts):
@@ -2917,14 +3375,18 @@ def main() -> int:
     for more in (dcounts, fcounts, m32counts):  # 9 (a), 10 (a), 10 (c)'s fp32 session
         for k, v in more.items():
             counts[k] += v
+    for more in (pcounts, pfcounts, pncounts):  # phase 12, every rank's
+        for k, v in more.items():
+            counts[k] += v
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
-        f"drafting={ok_draft} families={ok_fam} training={ok_train} {json.dumps(stats)} "
+        f"drafting={ok_draft} families={ok_fam} training={ok_train} parallel={ok_par} "
+        f"{json.dumps(stats)} "
         f"{json.dumps(qstats)} {json.dumps(sstats)} {json.dumps(estats)} {json.dumps(dstats)} "
         f"{json.dumps(gstats)} {json.dumps(mstats)} {json.dumps(tstats)} {json.dumps(tmstats)} "
         f"launches={json.dumps(counts)} total {time.time() - t_start:.1f}s")
     if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry
-            and ok_draft and ok_fam and ok_train):
+            and ok_draft and ok_fam and ok_train and ok_par):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]
@@ -2967,4 +3429,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase12"]:
+        sys.exit(phase12_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

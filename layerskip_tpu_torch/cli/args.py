@@ -21,8 +21,8 @@ class Arguments:
     model_args: Optional[str] = None  # "dtype=float32": a checkpoint's dtype
     seed: int = 42
     output_dir: str = "./logs"
-    dp: int = 1  # data-parallel mesh axis; > 1 is not ported yet
-    tp: int = 1  # tensor-parallel mesh axis; > 1 is not ported yet
+    dp: int = 1  # data-parallel mesh axis (batch rows; run dp*tp ranks)
+    tp: int = 1  # tensor-parallel mesh axis (heads, features, vocab)
     quantize: str = "none"  # weight-only quantization: none | int8 | int4
     device: str = "cuda"  # "cpu" runs the kernels' plain versions
 

@@ -11,6 +11,9 @@ Usage:
       --dataset custom_jsonl --data_path prompts.jsonl --num_samples 4 \
       --generation_strategy self_speculative --exit_layer 8 --num_speculations 6
   (add --device cpu to run on the CPU)
+
+With ``--tp`` / ``--dp`` above 1 it runs as that many ranks: rank 0 reads
+the dataset and broadcasts it, and only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -23,11 +26,13 @@ import time
 from typing import Optional
 
 from layerskip_tpu_torch.cli.args import Arguments, parse_dataclasses
-from layerskip_tpu_torch.cli.loading import load_from_args
+from layerskip_tpu_torch.cli.loading import coordinator_only, load_from_args, mesh_from_args
 from layerskip_tpu_torch.config import GenerationConfig
 from layerskip_tpu_torch.data import get_data
 from layerskip_tpu_torch.generation.generator import LlamaGenerator
 from layerskip_tpu_torch.metrics import EvaluationMetrics
+from layerskip_tpu_torch.parallel.collectives import broadcast_object
+from layerskip_tpu_torch.parallel.distributed import is_coordinator
 
 log = logging.getLogger(__name__)
 
@@ -45,8 +50,9 @@ class BenchmarkArguments:
 
 def benchmark(generator: LlamaGenerator, benchmark_arguments: BenchmarkArguments,
               generation_config: GenerationConfig, seed: int = 42):
-    """(metrics dict, metrics object) of one pass over the dataset."""
-    evaluation_set = get_data(
+    """(metrics dict, metrics object) of one pass over the dataset (rank
+    0's, broadcast to every rank of a sharded run)."""
+    evaluation_set = broadcast_object(get_data(
         random_shuffle=benchmark_arguments.random_shuffle,
         num_samples=benchmark_arguments.num_samples,
         dataset=benchmark_arguments.dataset,
@@ -54,7 +60,7 @@ def benchmark(generator: LlamaGenerator, benchmark_arguments: BenchmarkArguments
         n_shot=benchmark_arguments.n_shot,
         seed=seed,
         template=benchmark_arguments.template,
-    )
+    ) if is_coordinator() else None)
     metrics = EvaluationMetrics.build_metrics()
     profiling = None
     if benchmark_arguments.profile_dir:
@@ -81,8 +87,12 @@ def benchmark(generator: LlamaGenerator, benchmark_arguments: BenchmarkArguments
 
 def main(args: Arguments, bench_args: BenchmarkArguments, gen_cfg: GenerationConfig):
     params, cfg, tokenizer = load_from_args(args)
-    generator = LlamaGenerator(tokenizer, params, cfg, device=args.device)
+    generator = LlamaGenerator(tokenizer, params, cfg, device=args.device,
+                               mesh=mesh_from_args(args))
+    coordinator_only()
     metric_result, _ = benchmark(generator, bench_args, gen_cfg, args.seed)
+    if not is_coordinator():
+        return metric_result
 
     os.makedirs(args.output_dir, exist_ok=True)
     out_path = os.path.join(args.output_dir, f"benchmark_{int(time.time())}.json")

@@ -11,6 +11,11 @@ Usage:
   python -m layerskip_tpu_torch.cli.generate --model <dir|random:preset> \
       --generation_strategy self_speculative --exit_layer 8 --num_speculations 6
   (add --device cpu to run on the CPU)
+
+With ``--tp`` / ``--dp`` above 1 it runs as that many ranks (``torchrun
+--nproc-per-node N -m layerskip_tpu_torch.cli.generate ...``, or the
+port's launcher): rank 0 reads stdin and broadcasts each prompt, and only
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -20,13 +25,16 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from layerskip_tpu_torch.cli.args import Arguments, parse_dataclasses
-from layerskip_tpu_torch.cli.loading import load_from_args
+from layerskip_tpu_torch.cli.loading import coordinator_only, load_from_args, mesh_from_args
 from layerskip_tpu_torch.config import GenerationConfig
 from layerskip_tpu_torch.generation.engine import postprocess_output
 from layerskip_tpu_torch.generation.generator import LlamaGenerator, make_result
 from layerskip_tpu_torch.generation.streamer import SpeculativeTextStreamer, TextStreamer
+from layerskip_tpu_torch.parallel.collectives import broadcast_object
+from layerskip_tpu_torch.parallel.distributed import is_coordinator
 
 
 @dataclasses.dataclass
@@ -49,9 +57,23 @@ def _apply_chat_template(tokenizer, user_message: str) -> str:
     return user_message
 
 
+def _prompts():
+    """stdin's lines; with several ranks rank 0's, broadcast line by line."""
+    if not dist.is_initialized():
+        yield from sys.stdin
+        return
+    while True:
+        line = broadcast_object(sys.stdin.readline() if is_coordinator() else None)
+        if not line:
+            return
+        yield line
+
+
 def main(args: Arguments, gen_args: GenerateArguments, gen_cfg: GenerationConfig):
     params, cfg, tokenizer = load_from_args(args)
-    generator = LlamaGenerator(tokenizer, params, cfg, device=args.device)
+    generator = LlamaGenerator(tokenizer, params, cfg, device=args.device,
+                               mesh=mesh_from_args(args))
+    coordinator_only()
 
     use_spec_stream = (gen_args.streamer == "speculative"
                        and gen_cfg.generation_strategy == "self_speculative")
@@ -61,7 +83,7 @@ def main(args: Arguments, gen_args: GenerateArguments, gen_cfg: GenerationConfig
         generator.generate("warmup", gen_cfg, seed=args.seed)
         print(f"warmup done in {time.time() - t0:.1f}s", file=sys.stderr)
     print("Enter a prompt (Ctrl-D to exit):", file=sys.stderr)
-    for line in sys.stdin:
+    for line in _prompts():
         prompt = line.rstrip("\n")
         if not prompt:
             continue

@@ -7,6 +7,14 @@
 tokenizer, for runs without a checkpoint. A checkpoint directory without
 usable tokenizer files (or a machine without ``transformers``) falls back to
 that tokenizer too.
+
+With ``dp`` or ``tp`` above 1 the app runs as ``dp * tp`` ranks (torchrun,
+or the port's launcher ``python -m layerskip_tpu_torch.parallel.launch``):
+``mesh_for`` joins the process group and makes the (dp, tp) mesh, and each
+rank keeps its shard of the weights (parallel/sharding.py) and frees the
+rest. The backend is ``LAYERSKIP_TORCH_BACKEND`` when set (the launcher
+sets it from its ``--backend``), else NCCL on CUDA and gloo on the CPU; it
+is printed when the group starts.
 """
 
 from __future__ import annotations
@@ -18,9 +26,20 @@ from typing import Tuple
 import torch
 
 from layerskip_tpu_torch.config import PRESETS, ModelConfig, tiny_config
-from layerskip_tpu_torch.device import refuse_parallelism, resolve_device
+from layerskip_tpu_torch.device import resolve_device
 from layerskip_tpu_torch.models.llama import LlamaParams
 from layerskip_tpu_torch.models.params import init_params, load_params
+from layerskip_tpu_torch.parallel.distributed import (
+    BACKEND_ENV,
+    setup,
+    world_size_from_env,
+)
+from layerskip_tpu_torch.parallel.mesh import make_mesh
+from layerskip_tpu_torch.parallel.sharding import (
+    check_divisible,
+    context_from_mesh,
+    shard_params,
+)
 
 
 class SimpleTokenizer:
@@ -70,13 +89,46 @@ def _preset_config(name: str) -> ModelConfig:
     raise ValueError(f"unknown random preset: {name}")
 
 
-def maybe_shard(params: LlamaParams, dp: int = 1, tp: int = 1) -> LlamaParams:
-    """The JAX package shards the weights over a (dp, tp) mesh here; the
-    port runs on one device until its parallelism slice, so anything but
-    dp = tp = 1 raises."""
-    if dp != 1 or tp != 1:
-        refuse_parallelism(f"dp={dp} tp={tp}")
-    return params
+def mesh_for(dp: int, tp: int, device="cuda", seed: int = 42):
+    """The (dp, tp) mesh of this run, after joining the process group
+    (``parallel.distributed.setup``) when the run has several ranks; None
+    for one rank at dp = tp = 1. Raises when dp * tp is not the number of
+    ranks."""
+    dev = torch.device(device)
+    if dp * tp <= 1 and world_size_from_env() <= 1:
+        return None
+    backend = os.environ.get(BACKEND_ENV) or ("nccl" if dev.type == "cuda" else "gloo")
+    setup(backend, seed=seed)
+    return make_mesh(dp=dp, tp=tp, device_type=dev.type)
+
+
+def maybe_shard(params: LlamaParams, dp: int = 1, tp: int = 1,
+                cfg: ModelConfig = None) -> LlamaParams:
+    """This rank's shard of ``params`` over the (dp, tp) mesh when more than
+    one device is asked (``shard_params``: contiguous copies of the split
+    weights); ``params`` as they are otherwise."""
+    if dp * tp <= 1:
+        return params
+    mesh = mesh_for(dp, tp, params.embed.device)
+    return shard_params(params, mesh, cfg)[0]
+
+
+def coordinator_only() -> None:
+    """On every rank but rank 0, send standard output and error to the null
+    device: only the coordinator prints. An uncaught exception's traceback
+    still reaches the process's standard error."""
+    import traceback
+
+    from layerskip_tpu_torch.parallel.distributed import is_coordinator
+
+    if not is_coordinator():
+        sys.stdout = sys.stderr = open(os.devnull, "w")  # noqa: SIM115
+        sys.excepthook = lambda *exc: traceback.print_exception(*exc, file=sys.__stderr__)
+
+
+def mesh_from_args(args):
+    """``mesh_for`` of a CLI app's ``Arguments``."""
+    return mesh_for(args.dp, args.tp, args.device, args.seed)
 
 
 def _maybe_quantize(params: LlamaParams, quantize: str) -> LlamaParams:
@@ -89,6 +141,12 @@ def _maybe_quantize(params: LlamaParams, quantize: str) -> LlamaParams:
     from layerskip_tpu_torch.quant import quantize_llama_params
 
     return quantize_llama_params(params, bits=bits)
+
+
+def _release(dev: torch.device, dp: int, tp: int) -> None:
+    """After sharding, return the freed whole weights' blocks to the card."""
+    if dp * tp > 1 and dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _scale_tail(params: LlamaParams, tail_eps: float, tail_from: int) -> LlamaParams:
@@ -120,27 +178,41 @@ def load_model_and_tokenizer(
     weights come from torch's generator seeded with ``seed``, so they differ
     from the JAX package's for the same seed (threefry); to compare the two
     packages on the same weights, go through a checkpoint (``save_params``)
-    or ``params_from_numpy``. ``quantize`` applies weight-only int8/int4;
-    ``dp``/``tp`` > 1 raise. Raises without a GPU unless ``device="cpu"``.
+    or ``params_from_numpy``. ``quantize`` applies weight-only int8/int4.
+    ``dp``/``tp`` > 1 return this rank's shard over the (dp, tp) mesh
+    (``mesh_for``; every rank builds or reads the whole weights, keeps its
+    slices and frees the rest); quantization is refused there, in the JAX
+    package's words. Raises without a GPU unless ``device="cpu"``.
     """
     dev = resolve_device(device)
-    maybe_shard(None, dp, tp)  # refuse before any weights are built
+    if dp * tp > 1:  # refuse before any weights are built
+        if quantize not in ("", "none", None):
+            raise ValueError("--quantize requires dp=tp=1 (dense shard specs)")
+        mesh = mesh_for(dp, tp, dev, seed)
     if model.startswith("random:"):
         preset, _, query = model.split(":", 1)[1].partition("?")
         cfg = _preset_config(preset)
+        if dp * tp > 1:
+            check_divisible(cfg, context_from_mesh(mesh))
         params = init_params(cfg, seed=seed, device=dev)
         kv = dict(p.split("=", 1) for p in query.split("&") if p)
         if "tail_eps" in kv:
             tail_from = int(kv.get("tail_from", max(cfg.num_hidden_layers // 4, 1)))
             params = _scale_tail(params, float(kv["tail_eps"]), tail_from)
-        return _maybe_quantize(params, quantize), cfg, SimpleTokenizer(cfg.vocab_size)
+        params = maybe_shard(_maybe_quantize(params, quantize), dp, tp, cfg)
+        _release(dev, dp, tp)
+        return params, cfg, SimpleTokenizer(cfg.vocab_size)
 
     if not os.path.isdir(model):
         raise FileNotFoundError(
             f"model {model!r} is not a local directory; download checkpoints "
             "beforehand or use random:<preset>")
     cfg = ModelConfig.from_pretrained(model, dtype=dtype)
-    params = _maybe_quantize(load_params(model, cfg, device=dev), quantize)
+    if dp * tp > 1:
+        check_divisible(cfg, context_from_mesh(mesh))
+    params = maybe_shard(_maybe_quantize(load_params(model, cfg, device=dev), quantize),
+                         dp, tp, cfg)
+    _release(dev, dp, tp)
     try:
         from transformers import AutoTokenizer
 

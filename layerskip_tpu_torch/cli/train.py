@@ -71,6 +71,8 @@ class TrainArguments:
     resume: bool = True
     export_dir: Optional[str] = None  # HF safetensors export at the end
     fsdp: int = 1  # fully sharded data-parallel mesh axis; > 1 is not ported yet
+    # (nor are --dp and --tp for training: the inference mesh is not the
+    # training mesh)
     log_every: int = 10
 
 
@@ -131,8 +133,8 @@ def restore_checkpoint(root: str, step: int, params: LlamaParams,
 
 
 def main(args: Arguments, targs: TrainArguments):
-    if targs.fsdp != 1:
-        refuse_parallelism(f"fsdp={targs.fsdp}")
+    if targs.fsdp != 1 or args.dp != 1 or args.tp != 1:
+        refuse_parallelism(f"dp={args.dp} fsdp={targs.fsdp} tp={args.tp}")
     params, cfg, tokenizer = load_from_args(args)
     dev = params.embed.device
 

@@ -30,8 +30,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def refuse_parallelism(setting: str) -> None:
-    """Raise for a setting of the JAX package's device mesh (dp, tp, fsdp,
-    sequence-sharded activations, ring attention): the port runs on one
-    device until its parallelism slice, and every such setting is refused
-    here, in the same words."""
+    """Raise for a setting of the JAX package's training mesh (the train
+    CLI's dp, tp and fsdp, sequence-sharded activations, ring attention):
+    inference runs sharded (parallel/), training on one device until its
+    mesh is ported, and every such training setting is refused here, in the
+    same words."""
     raise NotImplementedError(f"{setting}: sharding is not ported yet")

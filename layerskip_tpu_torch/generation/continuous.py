@@ -199,8 +199,9 @@ class ContinuousSession:
     """Live multi-slot decode state for continuous batching: rows are
     inserted and harvested independently while other rows keep decoding.
     One small device-to-host copy per ``step`` (done flags and counters).
-    Device work runs under ``torch.inference_mode()`` inside each method
-    (the mode is per thread, so a scheduler thread may call them).
+    Device work runs under ``torch.inference_mode()`` and the engine's
+    sharded context inside each method (``Engine.inference``; both are per
+    thread, so a scheduler thread may call them).
 
     The contiguous cache has ``prompt_bucket`` extra trailing slots, the
     trash zone parked rows write into. Under ``paged`` (pool_pages,
@@ -237,7 +238,7 @@ class ContinuousSession:
                 self.prefix_cache = PrefixCache(self.allocator)
         elif prefix_cache:
             raise ValueError("prefix_cache requires paged KV")
-        with torch.inference_mode():
+        with self.engine.inference():
             self.state = self._blank_state()
         self.active = np.zeros(batch, bool)  # slot holds a live request
         # host mirrors from the last sync, for min_rounds_bound()
@@ -392,7 +393,7 @@ class ContinuousSession:
             # no prefix hit: every inserted row starts at 0 (K1 may run)
             paged_args = (self._dev(table),
                           self._dev(prefix_vec) if prefix_vec.any() else None)
-        with torch.inference_mode():
+        with self.engine.inference():
             self._insert_rows(mask, self._dev(ids), self._dev(lens), seed_vec.tolist(),
                               self._dev(steps_vec), *paged_args)
         if self.prefix_cache is not None:
@@ -486,7 +487,7 @@ class ContinuousSession:
         """Run up to ``max_rounds`` draft+verify rounds (fewer when every
         row finishes). Returns [(row, tokens, acceptance), ...] for the rows
         that finished."""
-        with torch.inference_mode():
+        with self.engine.inference():
             if self.has_pending_prefill():
                 # one staged chunk per step
                 self._advance_chunked_insert()
@@ -526,7 +527,7 @@ class ContinuousSession:
         owned = [r for r in range(self.batch) if idle[r] and self.allocator.owned(r)]
         if not owned:
             return 0
-        with torch.inference_mode():
+        with self.engine.inference():
             # frozen rows keep writing at their frontier every round: their
             # pages may go to another slot only once their tables point at
             # the trash page

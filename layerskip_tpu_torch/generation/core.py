@@ -14,14 +14,15 @@ import torch
 
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.generation.sampling import Generators
-from layerskip_tpu_torch.ops.kv_cache import KVCache, QuantKV
+from layerskip_tpu_torch.ops.kv_cache import KVCache, QuantKV, kv_shape
 
 
 def _mk_group_cache(cfg: ModelConfig, nlayers: int, b: int, max_len: int,
                     device, kv_quant: bool = False) -> KVCache:
     """Preallocated contiguous KV for a layer group, in ``cfg.dtype`` or, with
-    ``kv_quant``, int8 with per-(token, head) bf16 scales."""
-    shape = (nlayers, b, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    ``kv_quant``, int8 with per-(token, head) bf16 scales; this rank's
+    slice under a sharded context (``kv_shape``)."""
+    shape = kv_shape(cfg, nlayers, b, max_len)
     if kv_quant:
         return KVCache(k=QuantKV.zeros(shape, device), v=QuantKV.zeros(shape, device))
     return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -23,11 +23,22 @@ when none is set (the split does not change its drafts); ``hybrid`` needs
 ``exit_layer``, ``num_speculations`` and ``pld_ngram`` > 0; tree
 speculation (``spec_tree_width`` > 1) applies to ``self_speculative`` only,
 and neither trees nor hybrid drafting take adaptive drafting.
+
+A sharded engine (``Engine(..., mesh=, kv_shard_axis=)``, parallel/) runs
+every call under its rank's ``ShardContext``: the weights are the rank's
+slices (``parallel.sharding.shard_params``), the layer functions issue the
+collectives, and every rank holds the same full logits, so the host
+decisions (acceptance, EOS, sampled tokens from identically seeded
+generators, page allocation) agree on every rank. Under dp each dp group
+runs its own rows (the batch must divide by dp) and the results are
+gathered; under sp (the KV sequence dim) trees and continuous sessions are
+refused, as their slot moves cross the slabs.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +65,8 @@ from layerskip_tpu_torch.generation.spec import spec_generate
 from layerskip_tpu_torch.models import llama
 from layerskip_tpu_torch.models.llama import LlamaParams
 from layerskip_tpu_torch.ops.linear import QuantTensor
+from layerskip_tpu_torch.parallel.collectives import all_gather, all_reduce, sharded
+from layerskip_tpu_torch.parallel.sharding import check_divisible, context_from_mesh
 from layerskip_tpu_torch.quant import _MLP_FIELDS, _QUANT_FIELDS, quantize_draft_params
 
 
@@ -125,12 +138,24 @@ class Engine:
     is present; pass ``device="cpu"`` to run on the CPU. The params must
     already live on that device (``init_params``/``make_random_params``/
     ``params_from_*`` take the same ``device``).
+
+    With a ``mesh`` (parallel/mesh.py) the params are this rank's slices
+    (``shard_params(params, mesh)``) and every rank of the mesh makes the
+    same calls; ``kv_shard_axis`` names the mesh dim that splits the KV
+    sequence (sequence-sharded decode).
     """
 
-    def __init__(self, params: LlamaParams, cfg: ModelConfig, device="cuda"):
+    def __init__(self, params: LlamaParams, cfg: ModelConfig, device="cuda",
+                 mesh=None, kv_shard_axis: Optional[str] = None):
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"params on {params.embed.device}, engine on {self.device}")
+        self.shard = context_from_mesh(mesh, kv_shard_axis)
+        check_divisible(cfg, self.shard)
+        tp = self.shard.tp.size if self.shard and self.shard.tp else 1
+        if params.layers.wq.shape[1] * tp != cfg.num_attention_heads * cfg.head_dim:
+            raise ValueError(f"wq has {params.layers.wq.shape[1]} rows at tp={tp}: pass "
+                             "this rank's shard_params(params, mesh)")
         # quantized draft-layer-group copies keyed (exit_layer, bits, head,
         # mlp_only), built once per engine; declared before ``params``, whose
         # setter clears it
@@ -147,6 +172,13 @@ class Engine:
         # new weights must drop the drafters quantized from the old ones
         self._params = value
         self._draft_cache.clear()
+
+    @contextlib.contextmanager
+    def inference(self):
+        """Inference mode under this engine's sharded context: the frame of
+        every device call (the session's methods too)."""
+        with torch.inference_mode(), sharded(self.shard):
+            yield
 
     def _resolve_draft_quant(self, gen_cfg: GenerationConfig, strategy: str,
                              tree_width: int) -> Tuple[int, bool, bool]:
@@ -212,6 +244,17 @@ class Engine:
             max_cache_len = -(-max_cache_len // 512) * 512
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        dp = self.shard.dp if self.shard else None
+        if dp is not None:  # this dp group's rows
+            if b % dp.size:
+                raise ValueError(f"batch {b} does not divide by dp={dp.size}")
+            rows = slice(dp.rank * b // dp.size, (dp.rank + 1) * b // dp.size)
+            padded, true_lens = padded[rows], true_lens[rows]
+            if isinstance(generator, list):
+                generator = generator[rows]
+        if self.shard and self.shard.sp and tree_width > 1:
+            raise ValueError("tree speculation moves KV slots across the sp slabs; "
+                             "it does not run sequence-sharded")
         ids = torch.as_tensor(padded, dtype=torch.long, device=self.device)
         true_len = torch.as_tensor(true_lens, dtype=torch.long, device=self.device)
         common = dict(max_steps=max_steps, exit_layer=exit_layer, scfg=scfg,
@@ -235,14 +278,25 @@ class Engine:
         # or one per row, so each row samples from its own stream
         eos_ids: Sequence[int] = (),
     ) -> GenerateOutput:
-        with torch.inference_mode():
+        with self.inference():
             strategy, ids, true_len, generator, common, draft = self._request(
                 prompt_ids, gen_cfg, generator, eos_ids)
             if strategy == "autoregressive":
-                return ar_generate(self.params, self.cfg, ids, true_len, generator,
-                                   **common)
-            return spec_generate(self.params, self.cfg, ids, true_len, generator,
-                                 draft_params=draft, **common)
+                out = ar_generate(self.params, self.cfg, ids, true_len, generator, **common)
+            else:
+                out = spec_generate(self.params, self.cfg, ids, true_len, generator,
+                                    draft_params=draft, **common)
+            return self._gather_rows(out)
+
+    def _gather_rows(self, out: GenerateOutput) -> GenerateOutput:
+        """Every dp group's rows and summed counters, on every rank."""
+        dp = self.shard.dp if self.shard else None
+        if dp is None:
+            return out
+        return GenerateOutput(tokens=all_gather(out.tokens, dp, 0),
+                              num_tokens=all_gather(out.num_tokens, dp, 0),
+                              matches=all_reduce(out.matches, dp),
+                              drafts=all_reduce(out.drafts, dp))
 
     def stream_generate(
         self,
@@ -256,7 +310,9 @@ class Engine:
         per round, ``on_round(drafted, accepted)`` over row 0 (see
         ``spec_generate``). It drives the draft-repaint streamer
         (generation/streamer.py)."""
-        with torch.inference_mode():
+        if self.shard and self.shard.dp:
+            raise ValueError("stream_generate streams row 0: it does not run under dp")
+        with self.inference():
             strategy, ids, true_len, generator, common, draft = self._request(
                 prompt_ids, gen_cfg, generator, eos_ids)
             if strategy == "autoregressive":
@@ -276,7 +332,10 @@ class Engine:
         pages of ``page_size`` tokens instead of per-slot worst-case
         buffers; ``prefix_cache`` (paged only) also shares page-aligned
         prompt-prefix KV across requests. ``draft_quant`` and ``kv_quant``
-        apply as in ``generate``."""
+        apply as in ``generate``. A sharded engine serves under tp and ep
+        (every rank inserts and steps alike); dp and sp are refused."""
+        if self.shard and (self.shard.dp or self.shard.sp):
+            raise ValueError("a continuous session shards over tp and ep only, not dp or sp")
         eos = tuple(int(x) for x in eos_ids) or tuple(self.cfg.eos_token_ids)
         if gen_cfg.stop_token_ids:
             eos = eos + tuple(int(x) for x in gen_cfg.stop_token_ids)
@@ -291,7 +350,10 @@ class Engine:
                              "and num_speculations > 0")
         paged = (int(paged_pool_pages), int(page_size)) if paged_pool_pages else None
         bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
-        draft = self._draft_params(gen_cfg.exit_layer, bits, dq_head, dq_mlp) if bits else None
+        draft = None
+        if bits:
+            with self.inference():
+                draft = self._draft_params(gen_cfg.exit_layer, bits, dq_head, dq_mlp)
         return ContinuousSession(self, gen_cfg, batch, prompt_bucket, eos, paged=paged,
                                  prefix_cache=prefix_cache, draft=draft,
                                  tree_width=tree_width, pld_ngram=pld)

@@ -41,14 +41,15 @@ class LlamaGenerator:
 
     ``tokenizer`` is any object with ``encode(text) -> List[int]`` (or
     ``__call__(text)`` giving ``input_ids``) and ``decode(ids) -> str``; HF
-    tokenizers qualify. The engine never sees text.
+    tokenizers qualify. The engine never sees text. With a ``mesh`` the
+    params are this rank's shards (``Engine``'s ``mesh``).
     """
 
     def __init__(self, tokenizer, params: LlamaParams, cfg: ModelConfig,
-                 eos_ids: Sequence[int] = (), device="cuda"):
+                 eos_ids: Sequence[int] = (), device="cuda", mesh=None):
         self.tokenizer = tokenizer
         self.cfg = cfg
-        self.engine = Engine(params, cfg, device=device)
+        self.engine = Engine(params, cfg, device=device, mesh=mesh)
         self.eos_ids = list(eos_ids) or self._tokenizer_eos() or cfg.eos_token_ids
 
     def _tokenizer_eos(self) -> List[int]:

@@ -17,6 +17,13 @@ norms, sqrt(D)-scaled embeddings and gelu-tanh MLP, Gemma-2's post-sublayer
 norms, softcaps and alternating windows, Gemma-3's local RoPE base on its
 sliding layers, and the Mixtral/Qwen3-MoE expert MLP (ops/moe.py). Phi-3 is
 Llama once its fused projections are split (models/params.py).
+
+Under a sharded context (parallel/collectives.py) the weights are this
+rank's Megatron slices (parallel/sharding.py): the local head counts come
+from the local shapes, ``wo`` and ``w_down`` give partial sums that one
+all-reduce over tp completes each, the vocab-parallel embedding looks up
+the ids its slice holds and all-reduces, and ``lm_logits`` gathers the
+logits of every vocab slice, so every rank holds the same full logits.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from layerskip_tpu_torch.ops.linear import (
 from layerskip_tpu_torch.ops.moe import moe_mlp
 from layerskip_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_residual
 from layerskip_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
+from layerskip_tpu_torch.parallel.collectives import all_gather, all_reduce, axis
 
 
 @dataclasses.dataclass
@@ -77,7 +85,15 @@ class LlamaParams:
 
 
 def embed_tokens(params: LlamaParams, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = params.embed[ids]
+    tp = axis("tp")
+    if tp is None:
+        h = params.embed[ids]
+    else:  # vocab-parallel: ids outside this rank's slice look up 0
+        rows = params.embed.shape[0]
+        local = ids - tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        h = params.embed[local.clamp(0, rows - 1)]
+        h = all_reduce(torch.where(inside[..., None], h, torch.zeros_like(h)), tp)
     if cfg.scale_embeddings:
         # Gemma: the sqrt(D) normalizer is cast to the model dtype first
         h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
@@ -107,8 +123,9 @@ def _one_layer(
     window: Optional[int] = None,  # this layer's window (0 = global)
 ) -> torch.Tensor:
     b, t, _ = h.shape
-    hq, hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    dh = cfg.head_dim  # the head counts are this rank's (the weights' local shapes)
     eps, off = cfg.rms_norm_eps, cfg.norm_offset
+    tp = axis("tp")
     x = rms_norm(h, layers.attn_norm[i], eps, off)
     q = apply_weight_t(x, layers.wq[i])
     k = apply_weight_t(x, layers.wk[i])
@@ -117,9 +134,9 @@ def _one_layer(
         q = q + layers.bq[i]
         k = k + layers.bk[i]
         v = v + layers.bv[i]
-    q = q.reshape(b, t, hq, dh)
-    k = k.reshape(b, t, hkv, dh)
-    v = v.reshape(b, t, hkv, dh)
+    q = q.reshape(b, t, -1, dh)
+    k = k.reshape(b, t, -1, dh)
+    v = v.reshape(b, t, -1, dh)
     if layers.q_norm is not None:  # Qwen3, Gemma-3: per-head norms before RoPE
         q = rms_norm(q, layers.q_norm[i], eps, off)
         k = rms_norm(k, layers.k_norm[i], eps, off)
@@ -135,7 +152,7 @@ def _one_layer(
                      if cfg.query_pre_attn_scalar else None),
         logit_softcap=cfg.attn_logit_softcap,
     )
-    attn_out = apply_weight(attn.reshape(b, t, hq * dh), layers.wo[i])
+    attn_out = all_reduce(apply_weight(attn.reshape(b, t, -1), layers.wo[i]), tp)
     if layers.post_attn_norm is not None:  # Gemma-2/3: norm the sublayer's output
         attn_out = rms_norm(attn_out, layers.post_attn_norm[i], eps, off)
     x, h = rms_norm_residual(attn_out, h, layers.mlp_norm[i], eps, off)
@@ -146,6 +163,7 @@ def _one_layer(
     else:
         gated = _act(cfg, apply_weight(x, layers.w_gate[i])) * apply_weight(x, layers.w_up[i])
         mlp_out = apply_weight(gated, layers.w_down[i])
+    mlp_out = all_reduce(mlp_out, tp)
     if layers.post_mlp_norm is not None:
         mlp_out = rms_norm(mlp_out, layers.post_mlp_norm[i], eps, off)
     return h + mlp_out
@@ -222,6 +240,7 @@ def lm_logits(params: LlamaParams, cfg: ModelConfig, h: torch.Tensor) -> torch.T
         logits = apply_weight(h.float(), head)
     else:
         logits = matmul_f32(h, head)
+    logits = all_gather(logits, axis("tp"), dim=-1)  # vocab slices, in rank order
     if cfg.final_logit_softcap:  # Gemma-2, on the fp32 logits
         cap = float(cfg.final_logit_softcap)
         logits = cap * torch.tanh(logits / cap)

@@ -31,6 +31,14 @@ scratch region sits at logical position ``scratch + rel // fanout`` on chain
 ``rel % fanout``, and a query sees it when its position is visible and the
 key's chain is -1 (committed) or the query's own.
 
+Sequence-sharded decode (an ``sp`` axis in the sharded context,
+parallel/collectives.py; the engine's ``kv_shard_axis``): each rank holds a
+contiguous slab of the contiguous cache's positions. The masked path scores
+its slab's keys at their global positions, and the softmax's max, its sum
+and the weighted values are combined over sp by an all-reduce MAX and two
+all-reduce SUMs. K1 and the paged kernels stay off under sp, as they are
+in the JAX package (a kernel's KV dim is not split across devices).
+
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors.
 """
@@ -52,6 +60,7 @@ from layerskip_tpu_torch.ops.cuda.paged_decode import (
 )
 from layerskip_tpu_torch.ops.kv_cache import QuantKV
 from layerskip_tpu_torch.ops.paged_kv import PagedKV, PagedQuantKV
+from layerskip_tpu_torch.parallel.collectives import all_reduce, axis
 
 NEG_INF = -1e30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
 _MAX_SHORT_QUERY = MAX_QUERY  # drafts (T=1) and verify windows (T=W+1)
@@ -74,7 +83,10 @@ def gqa_attention(
 ) -> torch.Tensor:
     """Returns attention output [B, T, Hq, Dh] in q's dtype."""
     b, t, hq, dh = q.shape
+    sp = axis("sp")
     if isinstance(k_cache, (PagedKV, PagedQuantKV)):
+        if sp is not None:
+            raise ValueError("a paged cache is not sequence-sharded")
         if t <= _MAX_SHORT_QUERY and dh in HEAD_DIMS:
             kw = dict(q_heads_per_kv=q_heads_per_kv,
                       sliding_window=sliding_window or 0,
@@ -95,7 +107,7 @@ def gqa_attention(
         k_cache = k_cache.dequantize(q.dtype)
         v_cache = v_cache.dequantize(q.dtype)
     if (past_scalar is not None and tree_meta is None and t > _MAX_SHORT_QUERY
-            and dh in HEAD_DIMS):
+            and dh in HEAD_DIMS and sp is None):
         return flash_prefill_attention(
             q, k_cache, v_cache, int(past_scalar),
             q_heads_per_kv=q_heads_per_kv,
@@ -116,7 +128,10 @@ def gqa_attention(
         cap = float(logit_softcap)
         scores = cap * torch.tanh(scores / cap)
 
+    # the keys' global positions (under sp: this rank's slab)
     key_pos = torch.arange(s, device=q.device)[None, None, :]  # [1, 1, S]
+    if sp is not None:
+        key_pos = key_pos + sp.rank * s
     q_pos = q_positions[:, :, None]  # [B, T, 1]
     tree_mask = None
     if tree_meta is not None:
@@ -139,8 +154,14 @@ def gqa_attention(
         mask &= key_pos > q_pos - int(sliding_window)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
 
-    probs = torch.softmax(scores, dim=-1)
+    if sp is None:
+        probs = torch.softmax(scores, dim=-1)
+    else:  # the softmax over every slab's keys
+        peak = all_reduce(scores.amax(dim=-1, keepdim=True), sp, "max")
+        e = torch.exp(scores - peak)
+        probs = e / all_reduce(e.sum(dim=-1, keepdim=True), sp)
     out = torch.einsum(
         "bhgts,bshd->bthgd", probs.to(v_cache.dtype).float(), v_cache.float()
     )
+    out = all_reduce(out, sp)
     return out.reshape(b, t, hq, dh).to(q.dtype)

@@ -7,6 +7,12 @@ buffers (views of the stacked cache) and returns them, so a cache passed to
 a forward function is updated by it. ``QuantKV`` is the int8 cache
 (``GenerationConfig.kv_quant``), written in place the same way; the paged
 caches (``ops/paged_kv.py``) go through the same ``write_kv``.
+
+Under a sharded context (parallel/collectives.py) a rank's cache is its
+slice ``[L, B, S/sp, Hkv/tp, Dh]`` (``kv_shape``): its kv heads under tp,
+and under sp (sequence-sharded decode, the engine's ``kv_shard_axis``) the
+contiguous slab of positions ``[sp_rank * S/sp, (sp_rank + 1) * S/sp)``, of
+which ``write_kv`` writes only the positions the slab holds.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Union
 import torch
 
 from layerskip_tpu_torch.config import ModelConfig
+from layerskip_tpu_torch.parallel.collectives import axis, size
 
 
 @dataclasses.dataclass
@@ -27,10 +34,17 @@ class KVCache:
     v: torch.Tensor
 
 
+def kv_shape(cfg: ModelConfig, nlayers: int, batch: int, max_len: int):
+    """This rank's [L, B, S, Hkv, Dh] cache shape: kv heads over tp, and
+    ``max_len`` positions (rounded up to a multiple of sp) over sp."""
+    sp = size(axis("sp"))
+    return (nlayers, batch, -(-max_len // sp), cfg.num_key_value_heads // size(axis("tp")),
+            cfg.head_dim)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                   device="cuda") -> KVCache:
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
-             cfg.head_dim)
+    shape = kv_shape(cfg, cfg.num_hidden_layers, batch, max_len)
     dtype = dtype or cfg.dtype
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
@@ -45,6 +59,10 @@ def _store(buf: torch.Tensor, new: torch.Tensor, write_pos: Union[int, torch.Ten
     s = buf.shape[1]
     if isinstance(write_pos, torch.Tensor) and write_pos.dim() == 0:
         write_pos = int(write_pos)
+    sp = axis("sp")
+    if sp is not None:
+        _store_slab(buf, new, write_pos, sp)
+        return
     if isinstance(write_pos, int):
         start = min(max(write_pos, 0), s - t)
         buf[:, start:start + t] = new
@@ -52,6 +70,26 @@ def _store(buf: torch.Tensor, new: torch.Tensor, write_pos: Union[int, torch.Ten
     start = write_pos.long().clamp(0, s - t)
     slots = start[:, None] + torch.arange(t, device=buf.device)  # [B, T]
     buf[torch.arange(b, device=buf.device)[:, None], slots] = new
+
+
+def _store_slab(buf: torch.Tensor, new: torch.Tensor, write_pos, sp) -> None:
+    """``_store`` into this rank's slab of a sequence-sharded cache: the
+    positions of the global block (clamped against the global length) that
+    fall in the slab."""
+    b, t = new.shape[:2]
+    s_loc = buf.shape[1]
+    s, off = s_loc * sp.size, sp.rank * s_loc
+    if isinstance(write_pos, int):
+        start = min(max(write_pos, 0), s - t)
+        lo, hi = max(start, off), min(start + t, off + s_loc)
+        if lo < hi:
+            buf[:, lo - off:hi - off] = new[:, lo - start:hi - start]
+        return
+    start = write_pos.long().clamp(0, s - t)
+    slots = start[:, None] + torch.arange(t, device=buf.device) - off  # [B, T]
+    held = (slots >= 0) & (slots < s_loc)
+    rows = torch.arange(b, device=buf.device)[:, None].expand(b, t)
+    buf[rows[held], slots[held]] = new[held]
 
 
 @dataclasses.dataclass
@@ -95,8 +133,7 @@ class QuantKV:
 def init_quant_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                         device="cuda") -> KVCache:
     """KVCache whose k/v are stacked QuantKV buffers ([L, B, S, H, Dh])."""
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
-             cfg.head_dim)
+    shape = kv_shape(cfg, cfg.num_hidden_layers, batch, max_len)
     return KVCache(k=QuantKV.zeros(shape, device), v=QuantKV.zeros(shape, device))
 
 

@@ -21,16 +21,24 @@ kernel, so plain torch products are their port. A quantized expert stack
 goes through ``_qdot`` (the K4-K7 wrappers) in the ``few`` path, as the
 JAX package's ``_expert_mm`` does; the other two paths dequantize it to
 bf16 first, as the JAX package does.
+
+Under expert parallelism (an ``ep`` axis in the sharded context,
+parallel/collectives.py) a rank holds the experts ``[e0, e0 + E/ep)`` of
+the stack: routing runs on every rank over all E, each path computes the
+share of the resident experts (an assignment to another rank's expert adds
+0) and one all-reduce over ep sums the shares. Under tp the experts' F is
+split as well, and the caller's all-reduce over tp completes the product.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from layerskip_tpu_torch.ops.linear import QuantTensor, _qdot
+from layerskip_tpu_torch.parallel.collectives import all_reduce, axis
 
 # the JAX package's switch from the dense to the grouped path (measured there)
 _GROUPED_MIN_TOKENS = 2048
@@ -87,13 +95,21 @@ def _expert_mm(xs: torch.Tensor, w, experts: torch.Tensor) -> torch.Tensor:
     return torch.bmm(xs[:, None, :], w.index_select(0, experts))[:, 0]
 
 
-def _moe_few(x2, topv, topi, w_gate, w_up, w_down, k: int) -> torch.Tensor:
+def _moe_few(x2, topv, topi, w_gate, w_up, w_down, k: int,
+             e0: Optional[int] = None) -> torch.Tensor:
     """Per-assignment expert gather: reads only the routed experts. The
     slots of a token add up in slot order, as the JAX package's unrolled
-    loop does."""
+    loop does. With ``e0`` the stacks hold experts ``[e0, e0 + E_local)``
+    only, and an assignment to another expert weighs 0."""
     n = x2.shape[0]
     flat_e = topi.reshape(n * k)
     flat_w = topv.reshape(n * k).to(x2.dtype)
+    if e0 is not None:
+        n_local = w_gate.shape[0]
+        flat_e = flat_e - e0
+        resident = (flat_e >= 0) & (flat_e < n_local)
+        flat_w = torch.where(resident, flat_w, torch.zeros_like(flat_w))
+        flat_e = flat_e.clamp(0, n_local - 1)
     xs = x2.repeat_interleave(k, dim=0)  # [N*k, D]: assignment j reads token j // k
     g = _expert_mm(xs, w_gate, flat_e)
     u = _expert_mm(xs, w_up, flat_e)
@@ -105,11 +121,14 @@ def _moe_few(x2, topv, topi, w_gate, w_up, w_down, k: int) -> torch.Tensor:
     return out
 
 
-def _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts: int) -> torch.Tensor:
-    """All-experts combine."""
+def _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
+               e0: Optional[int] = None) -> torch.Tensor:
+    """All-experts combine (over the resident experts ``[e0, e0 + E_local)``)."""
     dt = x2.dtype
     cw = torch.zeros((x2.shape[0], n_experts), dtype=torch.float32, device=x2.device)
     cw = cw.scatter_add(1, topi, topv.float()).to(dt)  # [N, E]
+    if e0 is not None:
+        cw = cw[:, e0:e0 + w_gate.shape[0]]
     g = torch.einsum("nd,edf->nef", x2, _dense(w_gate, dt))
     u = torch.einsum("nd,edf->nef", x2, _dense(w_up, dt))
     a = F.silu(g) * u * cw[:, :, None]
@@ -125,9 +144,12 @@ def _per_expert(w):
 
 
 def _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
-                 k: int) -> torch.Tensor:
-    """Sort by expert, then one product per expert's segment."""
+                 k: int, e0: Optional[int] = None) -> torch.Tensor:
+    """Sort by expert, then one product per resident expert's segment (the
+    stacks hold experts ``[e0, e0 + E_local)``; other segments add 0)."""
     n, dt = x2.shape[0], x2.dtype
+    n_local = w_gate.shape[0]
+    e0 = e0 or 0
     w_gate, w_up, w_down = map(_per_expert, (w_gate, w_up, w_down))
     flat_e = topi.reshape(n * k)
     order = torch.argsort(flat_e, stable=True)  # token order kept within an expert
@@ -136,15 +158,15 @@ def _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
     # the segments' bounds are read on the host: one read per layer of a
     # prefill of _GROUPED_MIN_TOKENS tokens or more
     sizes = torch.bincount(flat_e, minlength=n_experts).tolist()
-    y = torch.empty_like(xs)
+    y = torch.empty_like(xs) if n_local == n_experts else torch.zeros_like(xs)
     start = 0
     for e, size in enumerate(sizes):
-        if size:
+        if size and e0 <= e < e0 + n_local:
             seg = xs[start:start + size]
-            a = (F.silu(seg @ _dense(w_gate[e], dt))
-                 * (seg @ _dense(w_up[e], dt)))
-            y[start:start + size] = a @ _dense(w_down[e], dt)
-            start += size
+            a = (F.silu(seg @ _dense(w_gate[e - e0], dt))
+                 * (seg @ _dense(w_up[e - e0], dt)))
+            y[start:start + size] = a @ _dense(w_down[e - e0], dt)
+        start += size
     w_sorted = topv.reshape(n * k).index_select(0, order).to(dt)
     return torch.zeros_like(x2).index_add_(0, tok, y * w_sorted[:, None])
 
@@ -156,17 +178,21 @@ def moe_mlp(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
     ``w_up`` [E, D, F] and ``w_down`` [E, F, D] (dense or QuantTensor):
     (output [B, T, D], load-balancing term). The path is the JAX package's
     rule: ``few`` when n*k < E, ``grouped`` from 2048 tokens, else
-    ``dense``."""
+    ``dense``. Under ep the stacks are this rank's experts and the output
+    is summed over ep here."""
     b, t, d = x.shape
     n_experts = w_router.shape[-1]
     n, k = b * t, num_experts_per_tok
     x2 = x.reshape(n, d)
     topv, topi, aux = route(x2, w_router, k, norm_topk)
+    ep = axis("ep")
+    e0 = None if ep is None else ep.rank * w_gate.shape[0]
     if n * k < n_experts:
-        path, out = "few", _moe_few(x2, topv, topi, w_gate, w_up, w_down, k)
+        path, out = "few", _moe_few(x2, topv, topi, w_gate, w_up, w_down, k, e0)
     elif n >= _GROUPED_MIN_TOKENS:
-        path, out = "grouped", _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts, k)
+        path, out = "grouped", _moe_grouped(x2, topv, topi, w_gate, w_up, w_down,
+                                            n_experts, k, e0)
     else:
-        path, out = "dense", _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts)
+        path, out = "dense", _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts, e0)
     PATH_CALLS[path] += 1
-    return out.reshape(b, t, d).to(x.dtype), aux
+    return all_reduce(out, ep).reshape(b, t, d).to(x.dtype), aux

@@ -30,6 +30,11 @@ reserves that region. ``tree_compact`` moves tree speculation's winning
 chain (generation/tree.py) into the contiguous frontier, in place: a
 W-slot gather into a new tensor, then a scatter, so the overlapping source
 and destination never mix.
+
+Under tensor parallelism (parallel/collectives.py) a rank's pools hold its
+``Hkv/tp`` kv heads; the tables, the allocator and the prefix cache are the
+same on every rank, which take the same host decisions from the same full
+logits, so they evolve alike.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.ops.kv_cache import KVCache
+from layerskip_tpu_torch.parallel.collectives import axis, size
 
 
 def _page_slots(table: torch.Tensor, write_pos: Union[int, torch.Tensor], t: int,
@@ -224,8 +230,9 @@ def init_paged_group(
     share one table between layer groups (the engine does)."""
     dtype = dtype or cfg.dtype
     cap_pages, trash_pages, max_pages = paged_geometry(capacity, page_size, prompt_bucket)
-    shape = (nlayers, pool_pages + trash_pages, cfg.num_key_value_heads, page_size,
-             cfg.head_dim)
+    # under tp a rank's pool holds its kv heads; tables stay whole
+    shape = (nlayers, pool_pages + trash_pages,
+             cfg.num_key_value_heads // size(axis("tp")), page_size, cfg.head_dim)
     if table is None:
         table = torch.full((batch, max_pages), pool_pages, dtype=torch.int32, device=device)
     if tuple(table.shape) != (batch, max_pages) or table.dtype != torch.int32:

@@ -614,8 +614,8 @@ def test_quantized_loader_keeps_spec_equal_to_ar(quant):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(model="random:tiny", dp=2), NotImplementedError),
-    (dict(model="random:tiny", tp=2), NotImplementedError),
+    (dict(model="random:tiny", dp=2), ValueError),  # one process is no 2-rank mesh
+    (dict(model="random:tiny", tp=2), ValueError),
     (dict(model="random:nope"), ValueError),
     (dict(model="/no/such/checkpoint"), FileNotFoundError),
     (dict(model="random:tiny", quantize="int3"), ValueError),
