@@ -123,10 +123,25 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      the card and the collectives cross the host); (c) a world-size-1 NCCL
      group running the tp 1 path with its collectives issued, and, with two
      cards or more, (b)'s tp 2 leg over NCCL, one rank a card;
+  13. the training mesh (``parallel/mesh.make_train_mesh``,
+     ``training/recipe.py`` on it, ``ops/ring_attention.py``): ranks of
+     this script (``--phase13 SUITE DIR``) sharing the card over gloo: (a)
+     four ranks, a narrow fp32 Qwen2-style model at fsdp 2 x tp 2, dp 2 x
+     fsdp 2 and dp 2 x fsdp 2 with ring attention, and a Mixtral-style MoE
+     at fsdp 2 x tp 2: loss, aux and whole gradients of a step, and params
+     after two AdamW steps, == the single device on the card; (b)
+     ``random:1b`` through ``cli.train.run`` at ``--fsdp 2`` (phase 11
+     (b)'s corpus, seed and B 4 x 1024, 3 steps): first loss == phase 11
+     (b)'s within 1e-2 relative, step ms, peak memory a rank, and each
+     rank's resident weights, gradients and AdamW state 0.606 of the single
+     device's (±1%); (c) ``random:1b`` at fsdp 2 with ring attention over
+     8192 tokens, one step, its peak under 30 GB a rank; (d) with two cards
+     or more, (b) and (c) at fsdp 4 (or 2) over NCCL, one rank a card; no
+     K1-K7 launch;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
 Every kernel count is set to 0 just before each run of phases 5 to 12 and
-read just after it (in phase 12 on every rank) (K2's and K3's tree-clause launches too; phase 11's must
-stay 0); every K1 and
+read just after it (in phases 12 and 13 on every rank) (K2's and K3's tree-clause launches
+too; phase 11's and 13's must stay 0); every K1 and
 K4-K7 launch of the bf16 runs must have taken the tensor-core route, and
 every one of phase 4, phase 8's fp32 checkpoint, phase 9 (a) and phase 10
 (a) (fp32) the CUDA-core route.
@@ -2688,11 +2703,13 @@ def llama_1b_training(card, tmp):
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
-        params, history = train.main(Arguments(model="random:1b", device="cuda", seed=0),
-                                     targs)
+        params, opt, history = train.run(Arguments(model="random:1b", device="cuda", seed=0),
+                                         targs)
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak_run = torch.cuda.max_memory_allocated()
+    resident = p13_resident(params, opt)  # phase 13 (b)'s single-device reference
+    del opt
     ok = kernels_idle("train 1b", read_counts())
     out = buf.getvalue()
     for line in out.splitlines():
@@ -2708,7 +2725,8 @@ def llama_1b_training(card, tmp):
     ok &= good
     stats = dict(step_ms_median=med, step_ms=step_ms, tok_s=b * t / med * 1e3,
                  mfu=flops / (med * 1e-3) / H100_BF16_PEAK, model_tflop_per_step=flops / 1e12,
-                 peak_gb_run=peak_run / 1e9, losses=losses, cli_wall_s=wall, card=card)
+                 peak_gb_run=peak_run / 1e9, losses=losses, cli_wall_s=wall, card=card,
+                 resident=resident)
     log(f"[train 1b] random:1b bf16 (L 16, D 2048, F 8192, V 128256, tied), B {b} x T {t}, "
         f"exits (4, 8, 12), p_max 0.1, CE chunk 1024: {len(rows)} steps, losses "
         f"{[round(x, 4) for x in losses]}; step ms median {med:.2f} (steps 2-10 "
@@ -3261,6 +3279,469 @@ def phase12_nccl(card, refs):
     return ok, total
 
 
+# ------------------------------------------------------------ phase 13
+
+# Phase 13 runs its ranks as processes of this script (``--phase13 SUITE
+# DIR``), as phase 12 does: on one card they share it over gloo, and every
+# collective (a layer's broadcast from its fsdp owner, the K/V gathers, the
+# gradient sums) crosses the host. Each rank writes DIR/rank<r>.pt.
+
+P13_B, P13_T, P13_V = 4, 16, 128  # (a): rows split over dp, the sequence over fsdp
+P13_TCFG = dict(p_max=0.3, early_exit_layers=(1, 2, 3), e_scale=0.5, rotational_r=2,
+                label_smoothing=0.1, ce_chunk_tokens=16)
+P13_ADAM = dict(learning_rate=1e-3, weight_decay=0.1)
+P13_ADAM_TOL = dict(atol=2e-6, rtol=1e-5)  # tests/test_torch_train_mesh.py's
+P13_LEGS = {  # leg -> (family, dp, fsdp, tp, ring): __graft_entry__'s meshes, one launch
+    "fsdp2_tp2": ("qwen2", 1, 2, 2, False), "dp2_fsdp2": ("qwen2", 2, 2, 1, False),
+    "dp2_fsdp2_ring": ("qwen2", 2, 2, 1, True), "moe_fsdp2_tp2": ("mixtral", 1, 2, 2, False)}
+P13_1B_STEPS = 3  # (b): steps of random:1b at fsdp 2, phase 11 (b)'s batch
+P13_RING_B, P13_RING_T, P13_RING_STEPS = 1, 8192, 1  # (c)
+TRAIN_1B_WEIGHTS = 1_235_814_400  # random:1b's trainable weights (tied head)
+TRAIN_1B_EMBED = 128_256 * 2048
+# the share of the single device's weights, gradients and AdamW state a
+# rank holds at fsdp N: the 16 layers split, the tied embedding and the
+# final norm whole (0.606 at fsdp 2)
+def p13_share(fsdp: int) -> float:
+    return ((TRAIN_1B_WEIGHTS - TRAIN_1B_EMBED - 2048) / fsdp + TRAIN_1B_EMBED + 2048) \
+        / TRAIN_1B_WEIGHTS
+
+
+def p13_model(family):
+    """(cfg, params) of (a): the CPU tests' width (tests/test_torch_train_mesh.py:
+    L 4, D 64, 4 heads over 2 kv heads, F 96, V 128, untied head), fp32,
+    every weight normal(0, 0.15) (norms 1 + that, the embedding twice
+    that), drawn from a seeded generator on the card, so every rank
+    builds the same weights."""
+    from layerskip_tpu_torch.config import tiny_config
+    from layerskip_tpu_torch.models.params import init_params
+    from layerskip_tpu_torch.training.recipe import trainable_tensors
+
+    cfg = tiny_config(hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+                      intermediate_size=96, vocab_size=P13_V, dtype=torch.float32,
+                      **FAMILIES.get(family, {}))
+    params = init_params(cfg, seed=13, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    with torch.no_grad():
+        for name, w in trainable_tensors(params).items():
+            w.normal_(0.0, 0.15, generator=gen)
+            if "norm" in name:
+                w.add_(1.0)
+        params.embed.mul_(2.0)
+    return cfg, params
+
+
+def p13_inputs(nl):
+    """(ids, labels, keep masks of the gradient step and of two AdamW steps):
+    -100 labels at the start of row 0 and at every row's end."""
+    rng = np.random.default_rng(51)
+    ids = rng.integers(0, P13_V, size=(P13_B, P13_T))
+    labels = np.concatenate([ids[:, 1:], np.full((P13_B, 1), -100)], axis=1)
+    labels[0, :5] = -100
+    keeps = [rng.random((nl, P13_B)) >= 0.3 for _ in range(3)]
+    for k in keeps:
+        k[nl - 1, 0] = False  # a sample skips a layer
+    return ids, labels, keeps
+
+
+def p13_part(x, ctx):
+    """This rank's rows (dp) and positions (fsdp) of a global [B, T] batch."""
+    b, t = x.shape
+    if ctx is not None and ctx.dp is not None:
+        x = x[ctx.dp.rank * b // ctx.dp.size:(ctx.dp.rank + 1) * b // ctx.dp.size]
+    if ctx is not None and ctx.fsdp is not None:
+        x = x[:, ctx.fsdp.rank * t // ctx.fsdp.size:(ctx.fsdp.rank + 1) * t // ctx.fsdp.size]
+    return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+
+def p13_run(family, mesh=None, ring=False):
+    """One leg on the card: loss, aux and whole gradients of a step at
+    step 1, then two AdamW steps (their losses, the gradients before each
+    and the whole params after). ``mesh`` None: the single device."""
+    from layerskip_tpu_torch.parallel.collectives import sharded
+    from layerskip_tpu_torch.parallel.sharding import gather_params, shard_params
+    from layerskip_tpu_torch.training import recipe
+
+    def named(p, grads=False):
+        return {k: (w.grad if grads else w).detach().cpu().clone()
+                for k, w in recipe.trainable_tensors(p).items()}
+
+    def whole(p, grads=False):
+        if ctx is None:
+            return named(p, grads)
+        with sharded(ctx):
+            return named(gather_params(grads_view(p) if grads else p, ctx))
+
+    def grads_view(p):
+        g = lambda w: None if w is None else w.grad  # noqa: E731
+        return dataclasses.replace(p, embed=g(p.embed), final_norm=g(p.final_norm),
+                                   lm_head=g(p.lm_head), layers=dataclasses.replace(
+                                       p.layers, **{f.name: g(getattr(p.layers, f.name))
+                                                    for f in dataclasses.fields(p.layers)}))
+
+    cfg, params = p13_model(family)
+    ids, labels, keeps = p13_inputs(cfg.num_hidden_layers)
+    local, ctx = shard_params(params, mesh, cfg)
+    act = dict(act_spec=recipe.ACT_SPEC, ring_axis="fsdp" if ring else None) if mesh else {}
+    for w in recipe.trainable_tensors(local).values():
+        w.requires_grad_(True)
+    tcfg = recipe.TrainConfig(**P13_TCFG, **act)
+    with sharded(ctx):
+        _, aux = recipe.loss_and_grads(local, cfg, tcfg, p13_part(ids, ctx),
+                                       p13_part(labels, ctx), step=1,
+                                       keep=torch.from_numpy(keeps[0]).cuda())
+    out = dict(aux={k: v.cpu() for k, v in aux.items()}, grads=whole(local, grads=True),
+               losses=[], step_grads=[], after=[])
+    cfg, params = p13_model(family)
+    local, _ = shard_params(params, mesh, cfg)
+    step_fn, init_opt = recipe.make_train_step(
+        cfg, recipe.TrainConfig(**P13_TCFG, **P13_ADAM, **act), mesh)
+    opt = init_opt(local)
+    for step in range(2):
+        local, opt, saux = step_fn(local, opt, p13_part(ids, ctx), p13_part(labels, ctx),
+                                   step=step, keep=torch.from_numpy(keeps[1 + step]).cuda())
+        out["losses"].append(float(saux["loss"]))
+        out["step_grads"].append(whole(local, grads=True))
+        out["after"].append(whole(local))
+    del local, params, opt
+    free_cuda()
+    return out
+
+
+def p13_fp32(work):
+    """A rank of (a): every leg on its mesh."""
+    from layerskip_tpu_torch.parallel.mesh import make_train_mesh
+
+    res = {}
+    for leg, (family, dp, fsdp, tp, ring) in P13_LEGS.items():
+        reset_counts()
+        res[leg] = p13_run(family, make_train_mesh(dp, fsdp, tp), ring)
+        res[leg]["counts"] = read_counts()
+    return res
+
+
+def p13_resident(params, opt) -> dict:
+    """Bytes this process holds of the weights, their gradients and the
+    AdamW state (both moments and the step counts)."""
+    from layerskip_tpu_torch.training import recipe
+
+    ws = list(recipe.trainable_tensors(params).values())
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    return dict(params=sum(size(w) for w in ws),
+                grads=sum(size(w.grad) for w in ws if w.grad is not None),
+                adamw=sum(size(v) for st in opt.state.values() for v in st.values()
+                          if torch.is_tensor(v)))
+
+
+def p13_1b_fsdp(work):
+    """A rank of (b) and (d): ``random:1b`` through ``cli.train.run`` at
+    --fsdp N (N: the world), phase 11 (b)'s corpus and batch,
+    ``P13_1B_STEPS`` steps."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from layerskip_tpu_torch.cli import train
+    from layerskip_tpu_torch.cli.args import Arguments
+
+    targs = train.TrainArguments(dataset="custom_jsonl",
+                                 data_path=os.path.join(work, "train.jsonl"),
+                                 steps=P13_1B_STEPS, batch_size=TRAIN_1B["batch_size"],
+                                 seq_len=TRAIN_1B["seq_len"], p_max=0.1, ce_chunk_tokens=1024,
+                                 log_every=1, fsdp=dist.get_world_size())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        params, opt, history = train.run(Arguments(model="random:1b", device="cuda", seed=0),
+                                         targs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _, step_ms = step_ms_from_log(buf.getvalue(), targs.batch_size * targs.seq_len)
+    res = dict(history=history, log=buf.getvalue(), step_ms=step_ms, wall_s=wall,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               resident=p13_resident(params, opt), counts=read_counts(),
+               layers=int(params.layers.wq.shape[0]))
+    del params, opt
+    free_cuda()
+    return res
+
+
+def p13_1b_ring(work):
+    """A rank of (c) and (d): ``random:1b`` at fsdp N (N: the world) with
+    ring attention over fsdp, B 1 x 8192 tokens, ``P13_RING_STEPS``
+    steps."""
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.parallel import collectives
+    from layerskip_tpu_torch.parallel.mesh import make_train_mesh
+    from layerskip_tpu_torch.parallel.sharding import shard_params
+    from layerskip_tpu_torch.training import recipe
+
+    import torch.distributed as dist
+
+    mesh = make_train_mesh(1, dist.get_world_size(), 1)
+    params, cfg, _ = load_model_and_tokenizer("random:1b", device="cuda")
+    local, ctx = shard_params(params, mesh, cfg)
+    del params
+    free_cuda()
+    tcfg = recipe.TrainConfig(act_spec=recipe.ACT_SPEC, ring_axis="fsdp")
+    step_fn, init_opt = recipe.make_train_step(cfg, tcfg, mesh)
+    opt = init_opt(local)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(61)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    collectives.reset_calls()
+    losses, step_ms = [], []
+    for step in range(P13_RING_STEPS):
+        ids = rng.integers(3, cfg.vocab_size, size=(P13_RING_B, P13_RING_T))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, opt, aux = step_fn(local, opt, p13_part(ids, ctx),
+                                  p13_part(np.roll(ids, -1, axis=1), ctx), gen, step)
+        losses.append(float(aux["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    res = dict(losses=losses, step_ms=step_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               counts=read_counts(), shifts=collectives.CALLS["ring_shift"])
+    del local, opt
+    free_cuda()
+    return res
+
+
+P13_SUITES = {"fp32": p13_fp32, "1b_fsdp": p13_1b_fsdp, "1b_ring": p13_1b_ring}
+
+
+def phase13_rank(suite: str, work: str) -> int:
+    """A rank of a phase 13 suite (under the port's launcher)."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from layerskip_tpu_torch.parallel.distributed import BACKEND_ENV, setup, teardown
+
+    setup(os.environ[BACKEND_ENV])
+    rank = dist.get_rank()
+    res = P13_SUITES[suite](work)
+    res.update(rank=rank, backend=dist.get_backend())
+    torch.save(res, os.path.join(work, f"rank{rank}.pt"))
+    teardown()
+    return 0
+
+
+def phase13_launch(suite: str, nproc: int, work: str, backend: str = "gloo"):
+    """Every rank's results of ``suite`` over ``nproc`` ranks; a failing
+    rank fails the phase (its traceback on stderr)."""
+    from layerskip_tpu_torch.parallel.launch import launch
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.time()
+    rc = launch([os.path.abspath(__file__), "--phase13", suite, work], nproc, backend,
+                env=env, timeout=600)
+    log(f"[phase 13] {suite}: {nproc} ranks over {backend}, exit code {rc}, "
+        f"{time.time() - t0:.1f}s")
+    if rc != 0:
+        raise RuntimeError(f"phase 13 suite {suite} failed with exit code {rc}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(nproc)]
+
+
+def p13_adam_moves(grads, lr):
+    """AdamW's summed moves after each step for the per-step gradients
+    ``grads`` (torch's AdamW, betas 0.9/0.999, eps 1e-8; the decay term,
+    the same on both sides, left out)."""
+    m = v = 0.0
+    total, out = 0.0, []
+    for t, g in enumerate(grads, 1):
+        m, v = 0.9 * m + 0.1 * g, 0.999 * v + 0.001 * g * g
+        total = total + lr * (m / (1 - 0.9 ** t)) / ((v / (1 - 0.999 ** t)).sqrt() + 1e-8)
+        out.append(total)
+    return out
+
+
+def p13_adam_gap(got, ref) -> float:
+    """The largest |got - want| over its bound of two AdamW runs' params (<=
+    1 within): P13_ADAM_TOL, except where gradients within TRAIN_GRAD_TOL
+    of the single device's could move AdamW's update by more than
+    P13_ADAM_TOL (the update's sign and size are those of m / sqrt(v): a
+    gradient under the gradients' atol may flip, and in step 2 a gradient
+    that nearly cancels step 1's leaves m near 0), which are held to Adam's
+    own bound, lr a step. The CPU tests' rule (every step's gradient above
+    the atol) is the first half of this one."""
+    import itertools
+
+    lr, tol, worst = P13_ADAM["learning_rate"], TRAIN_GRAD_TOL, 0.0
+    for k in got["after"][0]:
+        gs = [ref["step_grads"][step][k].double() for step in range(2)]
+        slack = [tol["atol"] + tol["rtol"] * g.abs() for g in gs]
+        base = p13_adam_moves(gs, lr)
+        for step in range(2):
+            want = ref["after"][step][k]
+            bound = P13_ADAM_TOL["atol"] + P13_ADAM_TOL["rtol"] * want.abs()
+            swing = torch.zeros_like(want, dtype=torch.float64)
+            for signs in itertools.product((-1.0, 1.0), repeat=step + 1):
+                moved = p13_adam_moves([g + s * d for g, s, d in zip(gs, signs, slack)], lr)
+                swing = torch.maximum(swing, (moved[step] - base[step]).abs())
+            loose = swing > bound
+            diff = (got["after"][step][k] - want).abs()
+            ratio = torch.where(loose, diff / (lr * (step + 1) * 2 + P13_ADAM_TOL["atol"]),
+                                diff / bound)
+            worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def phase13_fp32(work_root):
+    """(a): each leg's loss and gradients at step 1 and its params after two
+    AdamW steps == the single-device step on the card (losses within
+    TRAIN_LOSS_RTOL, gradients within TRAIN_GRAD_TOL, params within the
+    CPU tests' AdamW bound); no K1-K7 launch."""
+    refs = {}
+    for family in ("qwen2", "mixtral"):
+        refs[family] = p13_run(family)
+    ok, total = True, {}
+    work = os.path.join(work_root, "fp32")
+    os.makedirs(work)
+    for r in phase13_launch("fp32", 4, work):
+        for leg, (family, dp, fsdp, tp, ring) in P13_LEGS.items():
+            got, ref = r[leg], refs[family]
+            rel = max(float(((got["aux"][k] - ref["aux"][k]).abs()
+                             / ref["aux"][k].abs().clamp(min=1e-30)).max())
+                      for k in ("loss", "final_loss", "exit_losses", "moe_aux")
+                      if ref["aux"][k].numel())
+            step_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+            gap = grad_gap(got["grads"], ref["grads"])
+            adam = p13_adam_gap(got, ref)
+            idle = kernels_idle(f"phase 13 (a) rank {r['rank']} {leg}", got["counts"])
+            for k, v in got["counts"].items():
+                total[k] = total.get(k, 0) + v
+            good = (rel <= TRAIN_LOSS_RTOL and step_rel <= TRAIN_LOSS_RTOL and gap <= 1.0
+                    and adam <= 1.0 and idle)
+            ok &= good
+            log(f"[phase 13 (a)] rank {r['rank']} {leg} (dp {dp} x fsdp {fsdp} x tp {tp}"
+                f"{', ring' if ring else ''}, {family} fp32): loss "
+                f"{float(got['aux']['loss']):.6f} vs single device "
+                f"{float(ref['aux']['loss']):.6f}, largest loss rel diff {rel:.3g}, "
+                f"AdamW step losses rel diff {step_rel:.3g} (limit {TRAIN_LOSS_RTOL}), "
+                f"gradients at {gap:.3g} of atol 2e-5 + rtol 2e-3, params after two "
+                f"AdamW steps at {adam:.3g} of their bound -> {'PASS' if good else 'FAIL'}")
+    return ok, total
+
+
+def p13_check_1b(label, ranks, first_loss_1b, single_resident, where):
+    """(b) and (d)'s checks on every rank of a ``1b_fsdp`` run: first loss
+    within 1e-2 of phase 11 (b)'s, finite losses, ``L/fsdp`` layers a
+    rank, resident bytes within 1% of ``p13_share``, no K1-K7 launch.
+    Returns (ok, launches, rank 0's stats)."""
+    ok, total, stats = True, {}, {}
+    single = sum(single_resident.values())
+    n = len(ranks)
+    for r in ranks:
+        first = r["history"][0][1]
+        rel = abs(first - first_loss_1b) / abs(first_loss_1b)
+        mine = sum(r["resident"].values())
+        share, want = mine / single, p13_share(n)
+        losses = [x for _, x in r["history"]]
+        idle = kernels_idle(f"{label} rank {r['rank']}", r["counts"])
+        for k, v in r["counts"].items():
+            total[k] = total.get(k, 0) + v
+        good = (rel <= 1e-2 and abs(share - want) <= 0.01 * want
+                and len(losses) == P13_1B_STEPS and all(np.isfinite(losses)) and idle
+                and r["layers"] == 16 // n)
+        ok &= good
+        if r["rank"] == 0:
+            for line in r["log"].splitlines():
+                log(f"[{label} cli] {line}")
+            med = float(np.median(r["step_ms"])) if r["step_ms"] else float("nan")
+            stats = dict(step_ms=r["step_ms"], step_ms_median=med, first_loss=first,
+                         peak_gb=r["peak_gb"], resident_share=share)
+        log(f"[{label}] rank {r['rank']}: random:1b bf16 at fsdp {n} ({16 // n} of 16 layers "
+            f"a rank, the tied embedding whole), B 4 x 1024 ({1024 // n} positions a rank), "
+            f"{len(losses)} steps, losses {[round(x, 4) for x in losses]}; first loss "
+            f"{first:.4f} vs phase 11 (b)'s single device {first_loss_1b:.4f} (rel diff "
+            f"{rel:.3g}, limit 1e-2); step ms {[round(x, 1) for x in r['step_ms']]} (steps "
+            f"2-{P13_1B_STEPS}; rank 0's log); peak {r['peak_gb']:.2f} GB; resident weights "
+            f"{r['resident']['params'] / 1e9:.3f} GB + gradients "
+            f"{r['resident']['grads'] / 1e9:.3f} + AdamW {r['resident']['adamw'] / 1e9:.3f} "
+            f"= {mine / 1e9:.3f} GB, {share:.4f} of the single device's {single / 1e9:.3f} "
+            f"(reckoned from sizes {want:.4f}) -> {'PASS' if good else 'FAIL'} ({where})")
+    return ok, total, stats
+
+
+def p13_corpus(work_root, name):
+    work = os.path.join(work_root, name)
+    os.makedirs(work)
+    write_jsonl(os.path.join(work, "train.jsonl"), entry_prompts(64, seed=31))  # phase 11 (b)'s
+    return work
+
+
+def phase13_full_width(card, work_root, first_loss_1b, single_resident):
+    """(b) ``random:1b`` at --fsdp 2 through ``cli.train`` and (c) its ring
+    at 8192 tokens, two gloo ranks on the card; no K1-K7 launch."""
+    ranks = phase13_launch("1b_fsdp", 2, p13_corpus(work_root, "1b_fsdp2"))
+    ok, total, stats = p13_check_1b(
+        "phase 13 (b)", ranks, first_loss_1b, single_resident,
+        f"{card}; both ranks share this one card and every collective crosses the host over "
+        f"gloo: not a speed of fsdp over NVLink")
+    stats["card"] = card
+
+    ok_ring, ring_counts, ring_stats = p13_check_ring(
+        "phase 13 (c)", phase13_launch("1b_ring", 2, p13_corpus(work_root, "1b_ring")), card)
+    for k, v in ring_counts.items():
+        total[k] = total.get(k, 0) + v
+    stats.update(ring_stats)
+    return ok and ok_ring, total, stats
+
+
+def p13_check_ring(label, ranks, where):
+    """(c) and (d)'s checks on every rank of a ``1b_ring`` run: finite
+    losses, K/V shifted around the ring, the peak under 30 GB a rank, no
+    K1-K7 launch. Returns (ok, launches, rank 0's stats)."""
+    ok, total, stats = True, {}, {}
+    n = len(ranks)
+    t_loc = P13_RING_T // n
+    saved = 32 * t_loc * t_loc * 4 * n  # a layer's fp32 score blocks a rank, B 1
+    for r in ranks:
+        idle = kernels_idle(f"{label} rank {r['rank']}", r["counts"])
+        for k, v in r["counts"].items():
+            total[k] = total.get(k, 0) + v
+        good = (all(np.isfinite(r["losses"])) and r["shifts"] > 0 and r["peak_gb"] < 30.0
+                and idle)
+        ok &= good
+        if r["rank"] == 0:
+            stats = dict(ring_step_ms=r["step_ms"], ring_peak_gb=r["peak_gb"],
+                         ring_losses=r["losses"])
+        log(f"[{label}] rank {r['rank']}: random:1b bf16 at fsdp {n}, ring attention over "
+            f"fsdp, B {P13_RING_B} x {P13_RING_T} tokens ({t_loc} a rank), "
+            f"{P13_RING_STEPS} steps: losses {[round(x, 4) for x in r['losses']]}, step ms "
+            f"{[round(x, 1) for x in r['step_ms']]}, {r['shifts']} ring shifts; peak "
+            f"{r['peak_gb']:.2f} GB (limit 30; a layer's {n} fp32 score blocks are "
+            f"{saved / 1e9:.2f} GB, {16 * saved / 1e9:.1f} GB over 16 layers were they all "
+            f"kept: under fsdp each layer is recomputed in backward, so one layer's live at a "
+            f"time) -> {'PASS' if good else 'FAIL'} ({where})")
+    return ok, total, stats
+
+
+def phase13_nccl(card, work_root, first_loss_1b, single_resident):
+    """(d): with two cards or more, ``random:1b`` at --fsdp N (4 with four
+    cards, else 2) through ``cli.train`` over NCCL, one rank a card."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[phase 13 (d)] random:1b at fsdp N over NCCL, one rank a card: not run, this "
+            f"machine has {count} card ({card}); fsdp over NVLink stays unmeasured here")
+        return True, {}, {}
+    n = 4 if count >= 4 else 2
+    where = f"{card} x {n}, one rank a card over NCCL"
+    ranks = phase13_launch("1b_fsdp", n, p13_corpus(work_root, f"1b_nccl{n}"), backend="nccl")
+    ok, total, stats = p13_check_1b("phase 13 (d)", ranks, first_loss_1b, single_resident,
+                                    where)
+    ranks = phase13_launch("1b_ring", n, p13_corpus(work_root, f"1b_ring_nccl{n}"),
+                           backend="nccl")
+    ok_ring, ring_counts, ring_stats = p13_check_ring("phase 13 (d) ring", ranks, where)
+    for k, v in ring_counts.items():
+        total[k] = total.get(k, 0) + v
+    stats.update(ring_stats)
+    return ok and ok_ring, total, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3354,6 +3835,21 @@ def main() -> int:
     log(f"[phase 12 launches] (a) {json.dumps(pcounts)}; (b) {json.dumps(pfcounts)}; "
         f"(c) {json.dumps(pncounts)}, summed over the ranks")
     log(f"[phase 12] {time.time() - t0:.1f}s")
+    free_cuda()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as work:
+        ok_mesh, mcounts13 = phase13_fp32(work)
+        ok_mesh_full, fcounts13, p13stats = phase13_full_width(card, work, tstats["losses"][0],
+                                                               tstats["resident"])
+        ok_nccl13, ncounts13, p13stats["nccl"] = phase13_nccl(card, work, tstats["losses"][0],
+                                                              tstats["resident"])
+    ok_mesh &= ok_mesh_full and ok_nccl13
+    for more in (ncounts13,):
+        for k, v in more.items():
+            fcounts13[k] = fcounts13.get(k, 0) + v
+    log(f"[phase 13 launches] K1-K7 over every rank: (a) {json.dumps(mcounts13)}; (b)-(c) "
+        f"{json.dumps(fcounts13)} (all must be 0)")
+    log(f"[phase 13] {time.time() - t0:.1f}s")
     # phases 5-8, 9 (b) and 10 (b)-(c) run in bf16 (9 (b)'s fp32 check only
     # adds K2 launches): every K1 launch must take the tensor-core route
     for more in (qcounts, scounts, ecounts, dfcounts, gcounts, mcounts):
@@ -3381,12 +3877,12 @@ def main() -> int:
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
         f"drafting={ok_draft} families={ok_fam} training={ok_train} parallel={ok_par} "
-        f"{json.dumps(stats)} "
+        f"training_mesh={ok_mesh} {json.dumps(stats)} {json.dumps(p13stats)} "
         f"{json.dumps(qstats)} {json.dumps(sstats)} {json.dumps(estats)} {json.dumps(dstats)} "
         f"{json.dumps(gstats)} {json.dumps(mstats)} {json.dumps(tstats)} {json.dumps(tmstats)} "
         f"launches={json.dumps(counts)} total {time.time() - t_start:.1f}s")
     if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry
-            and ok_draft and ok_fam and ok_train and ok_par):
+            and ok_draft and ok_fam and ok_train and ok_par and ok_mesh):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]
@@ -3431,4 +3927,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase12"]:
         sys.exit(phase12_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase13"]:
+        sys.exit(phase13_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

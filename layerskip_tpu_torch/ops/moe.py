@@ -27,7 +27,13 @@ parallel/collectives.py) a rank holds the experts ``[e0, e0 + E/ep)`` of
 the stack: routing runs on every rank over all E, each path computes the
 share of the resident experts (an assignment to another rank's expert adds
 0) and one all-reduce over ep sums the shares. Under tp the experts' F is
-split as well, and the caller's all-reduce over tp completes the product.
+split as well, and the caller's all-reduce over tp completes the product;
+in training the experts' input and the routing weights (both replicated,
+both multiplying a tp-partial product) pass ``copy_to_group``, so their
+gradients are summed over tp, while the router's own (replicated) path is
+not. With the tokens split over ranks (training's dp and fsdp), the
+load-balancing term is the global one: the per-expert sums and the token
+count are all-reduced before the product.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from layerskip_tpu_torch.ops.linear import QuantTensor, _qdot
-from layerskip_tpu_torch.parallel.collectives import all_reduce, axis
+from layerskip_tpu_torch.parallel.collectives import all_reduce, axis, copy_to_group
 
 # the JAX package's switch from the dense to the grouped path (measured there)
 _GROUPED_MIN_TOKENS = 2048
@@ -62,10 +68,13 @@ def _dense(w, dtype: torch.dtype) -> torch.Tensor:
 
 
 def route(x2: torch.Tensor, w_router: torch.Tensor, k: int,
-          norm_topk: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+          norm_topk: bool = True,
+          aux_axes: tuple = ()) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing of ``x2`` [N, D] over ``w_router`` [D, E]: (weights
     [N, k] fp32, expert ids [N, k], the load-balancing term ``E * sum_e
-    f_e * P_e`` of this layer as a 0-d fp32 tensor)."""
+    f_e * P_e`` of this layer as a 0-d fp32 tensor). ``aux_axes`` are the
+    axes the tokens are split over: f and P are then means over every
+    rank's tokens (one all-reduce of the sums and the count per axis)."""
     e = w_router.shape[-1]
     logits = x2 @ w_router  # model dtype, like HF's nn.Linear gate
     probs = torch.softmax(logits.float(), dim=-1)  # [N, E]
@@ -73,8 +82,15 @@ def route(x2: torch.Tensor, w_router: torch.Tensor, k: int,
     if norm_topk:
         topv = topv / topv.sum(dim=-1, keepdim=True)
     assign = F.one_hot(topi, e).float().sum(dim=1)  # [N, E]
-    f = assign.mean(dim=0)  # [E], sums to k
-    p = probs.mean(dim=0)
+    if aux_axes:
+        stats = torch.cat([assign.sum(dim=0), probs.sum(dim=0),
+                           probs.new_full((1,), float(x2.shape[0]))])
+        for ax in aux_axes:
+            stats = all_reduce(stats, ax)
+        f, p = stats[:e] / stats[-1], stats[e:2 * e] / stats[-1]
+    else:
+        f = assign.mean(dim=0)  # [E], sums to k
+        p = probs.mean(dim=0)
     aux = float(e) * (f / k * p).sum()
     return topv, topi, aux
 
@@ -172,19 +188,21 @@ def _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
 
 
 def moe_mlp(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
-            num_experts_per_tok: int,
-            norm_topk: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            num_experts_per_tok: int, norm_topk: bool = True,
+            aux_axes: tuple = ()) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward of ``x`` [B, T, D] with stacked experts ``w_gate``/
     ``w_up`` [E, D, F] and ``w_down`` [E, F, D] (dense or QuantTensor):
     (output [B, T, D], load-balancing term). The path is the JAX package's
     rule: ``few`` when n*k < E, ``grouped`` from 2048 tokens, else
     ``dense``. Under ep the stacks are this rank's experts and the output
-    is summed over ep here."""
+    is summed over ep here. ``aux_axes``: ``route``'s."""
     b, t, d = x.shape
     n_experts = w_router.shape[-1]
     n, k = b * t, num_experts_per_tok
     x2 = x.reshape(n, d)
-    topv, topi, aux = route(x2, w_router, k, norm_topk)
+    topv, topi, aux = route(x2, w_router, k, norm_topk, aux_axes)
+    tp = axis("tp")
+    x2, topv = copy_to_group(x2, tp), copy_to_group(topv, tp)
     ep = axis("ep")
     e0 = None if ep is None else ep.rank * w_gate.shape[0]
     if n * k < n_experts:

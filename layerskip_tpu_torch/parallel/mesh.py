@@ -9,9 +9,12 @@ group (``parallel/distributed.setup``), the trailing dim varying fastest:
   * ``tp`` — tensor parallel (heads, MLP features, vocab)
   * ``sp`` — the KV cache's sequence dim (``make_sp_mesh``; the engine's
     ``kv_shard_axis``)
+  * ``fsdp`` — training only (``make_train_mesh``): the stacked layers'
+    [L] dim, ZeRO-3 style (each layer lives on one rank and reaches the
+    others when it runs), and the activations' sequence dim
 
 The sharding itself is explicit (``parallel/sharding.py``); the mesh only
-supplies the groups. The training mesh (dp, fsdp, tp) is not ported yet.
+supplies the groups.
 """
 
 from __future__ import annotations
@@ -66,6 +69,18 @@ def make_sp_mesh(sp: int, tp: int = 1, device_type: str = "cuda") -> Optional[De
         raise ValueError(f"sp*tp={sp * tp} != #devices={_world()}")
     return _mesh((sp, tp) if tp > 1 else (sp,), ("sp", "tp") if tp > 1 else ("sp",),
                  device_type)
+
+
+def make_train_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1,
+                    device_type: str = "cuda") -> Optional[DeviceMesh]:
+    """The [dp, fsdp, tp] training mesh over every rank: ``dp`` data
+    parallel (gradients summed), ``fsdp`` the stacked layers and the
+    sequence (``training/recipe.py``), ``tp`` Megatron tensor parallel;
+    ``dp * fsdp * tp`` must be the world size. None in a process that
+    joined no process group (a world of one)."""
+    if dp * fsdp * tp != _world():
+        raise ValueError(f"dp*fsdp*tp={dp * fsdp * tp} != #devices={_world()}")
+    return _mesh((dp, fsdp, tp), ("dp", "fsdp", "tp"), device_type)
 
 
 def single_device_mesh(device_type: str = "cuda") -> Optional[DeviceMesh]:

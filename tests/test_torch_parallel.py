@@ -145,5 +145,7 @@ def test_quantize_with_tp_and_the_training_mesh_are_refused(tmp_path):
     data.write_text('{"prompt": "ab", "response": "cd"}\n')
     targs = train.TrainArguments(dataset="custom_jsonl", data_path=str(data), steps=1,
                                  batch_size=1, seq_len=16, fsdp=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the training mesh runs now (tests/test_torch_train_cli_mesh.py): one
+    # process is no fsdp 2 mesh
+    with pytest.raises(ValueError, match="!= #devices=1"):
         train.main(Arguments(model="random:tiny", device="cpu"), targs)

@@ -420,15 +420,20 @@ def test_moe_grouped_path_gradients_equal_dense():
 
 
 def test_parallel_settings_and_quantized_weights_are_refused():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        recipe.TrainConfig(act_spec=("dp", "fsdp", None))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        recipe.TrainConfig(ring_axis="sp")
+    """The training mesh's settings are accepted (the mesh runs in
+    tests/test_torch_train_mesh.py); a layout the port does not shard and
+    a ring off the sequence axis raise, and so do quantized weights."""
+    assert recipe.TrainConfig(act_spec=("dp", "fsdp", None)).act_spec == ("dp", "fsdp", None)
+    assert recipe.TrainConfig(ring_axis="fsdp").ring_axis == "fsdp"
+    with pytest.raises(ValueError, match="shards activations as"):
+        recipe.TrainConfig(act_spec=("dp", None, "tp"))
     params = tparams.params_from_numpy(_numpy_tree("llama"), device="cpu")
+    cfg = tiny_config(**_kw("llama"))
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="ring_axis='sp'"):
+        recipe.layerskip_loss(params, cfg, recipe.TrainConfig(ring_axis="sp"), ids, ids)
     params.layers.wq = QuantTensor(q=params.layers.wq.to(torch.int8),
                                    scale=torch.ones(params.layers.wq.shape[:2]),
                                    k_last=True)
-    cfg = tiny_config(**_kw("llama"))
-    ids = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="quantized"):
         recipe.layerskip_loss(params, cfg, recipe.TrainConfig(), ids, ids)
