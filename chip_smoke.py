@@ -18,6 +18,9 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      Llama-3.2-1B wk at M = 1; with a softcap (Gemma) the library call is
      a compiled ``flex_attention`` with that score_mod and the same mask
      (SDPA has no softcap), its error against the plain version logged;
+     K1 also at phase 14's 30720-token prefill with the Llama-3.2-1B heads,
+     held against the plain version on its first and last 512 query rows
+     (each within 2 bf16 ulps of its largest output);
   4. exact greedy AR == self-spec in fp32 at a small width, through the
      kernels: the dense base (K1, 4 launches per prefill), int8 and int4
      bases, int8 and int4 drafters over the dense base (== dense AR), and
@@ -116,7 +119,7 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      phase 10 (a)'s Mixtral-style MoE at ep 2 x tp 2 (AR, spec): every
      stream == the single-process stream exactly, and K1, K2 (tree clause),
      K3 and K4-K7 launched on each rank; (b) ``random:7b?tail_eps=0&
-     tail_from=8`` at tp 2 (AR, spec; phase 5's prompt and steps), a
+     tail_from=8`` at tp 2 (AR, spec; phase 5's prompt, 64 steps), a
      2000-token prompt at sp 2 and moe-3b at ep 2, each == the
      single-device stream up to its first near tie, with tok/s, launches
      and peak memory per rank (not a speed of parallelism: both ranks share
@@ -138,8 +141,28 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      8192 tokens, one step, its peak under 30 GB a rank; (d) with two cards
      or more, (b) and (c) at fsdp 4 (or 2) over NCCL, one rank a card; no
      K1-K7 launch;
+  14. the remaining apps and the native runtime: (a) ``random:1b``'s bf16
+     weights written as 4 shards and read by ``load_params`` with the
+     native (C++, built with g++ from ``native/``) and the Python reader,
+     both == the weights bit for bit, each timed after a page drop request
+     and with the pages cached (the share of pages resident logged), and
+     the native Levenshtein and LCS == the plain loops on 1000 seeded
+     pairs; (b) ``cli.eval.main --tasks local:`` at 7B in bf16 over 16
+     four-choice docs (buckets 512 and 2048; K1 on the tensor cores), acc
+     and acc_norm in [0, 1] and the result JSON, a batch's scores == the
+     rows alone (1e-3 relative), ``loglikelihood_rolling`` over 5000 tokens
+     == its windows' sum, and phase 4's fp32 model scored on the card == on
+     the CPU (1e-4 relative, greedy flags equal, three rows continuing with
+     the model's own greedy tokens); (c) ``cli.sweep`` at 7B, exit {4, 8} x
+     W {2, 6}: a CSV of 4 rows; (d) the measurement scripts in this
+     process: ``bench_torch_serving`` at 7B (paged, prefix cache; then the
+     int8 pool: K2, then K3, launched, every scheduler serving all 8 x 64
+     tokens: the seed's streams meet no EOS), ``bench_torch_chunked`` at 1B,
+     ``bench_torch_longctx`` at 1B over 30720 tokens (K1 >= 16 launches a
+     prefill, greedy spec == AR, peak memory) and ``bench_torch_adaptive``
+     at 7B, each JSON line logged;
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
-Every kernel count is set to 0 just before each run of phases 5 to 12 and
+Every kernel count is set to 0 just before each run of phases 5 to 14 and
 read just after it (in phases 12 and 13 on every rank) (K2's and K3's tree-clause launches
 too; phase 11's and 13's must stay 0); every K1 and
 K4-K7 launch of the bf16 runs must have taken the tensor-core route, and
@@ -152,6 +175,7 @@ before printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -365,6 +389,84 @@ def check_flash_prefill(full_cache_len):
             f"bound_ms={bound_ms:.5f} ({bound_by}) shape=B{b} T{t} S{s} past{past} "
             f"Hq{hq} Hkv{hkv} Dh{dh} win{window} {str(dtype).split('.')[-1]}")
     return ok, results
+
+
+LONG_CTX, LONG_ROWS = 30720, 512  # phase 14's long context; K1 checked on its first and last rows
+LONG_ULPS = 2  # tolerance in bf16 ulps of the slice's largest |want|
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def check_flash_prefill_long():
+    """K1 at ``bench_torch_longctx.py``'s prefill: T = S = 30720 with the
+    Llama-3.2-1B heads (Hkv 8, G 4, Dh 64) in bf16. The plain version of the
+    whole call would hold a 121 GB fp32 score tensor, so it runs on two
+    slices of the kernel's rows: the last 512 (``past`` 30208 over all
+    30720 keys; ``plain_ms`` is this slice's) and the first 512 (over their
+    own 512 keys, where the causal edge cuts every tile). Each is held to
+    LONG_ULPS bf16 ulps of its largest |want|: both sides round one fp32
+    value to bf16, so they differ by at most about one ulp, while a lost key
+    tile or split shifts an output of the last rows (typical size
+    sqrt(e / S) ~ 0.01) by ~1e-3. The library call is SDPA's causal form
+    without its math backend (which would also materialize the scores)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from layerskip_tpu_torch.ops.cuda.flash_prefill import (
+        flash_prefill_attention,
+        flash_prefill_attention_plain,
+    )
+
+    t0 = time.time()
+    name, t, hkv, g, dh = "flash_prefill_1b_ctx30720_bf16", LONG_CTX, 8, 4, 64
+    hq, past = hkv * g, LONG_CTX - LONG_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, t, hq, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(1, t, hkv, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(1, t, hkv, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(q_heads_per_kv=g)
+    got = flash_prefill_attention(q, k, v, 0, **kw)
+    torch.cuda.synchronize()
+    q_tail = q[:, past:].contiguous()
+    slices = {"last": (got[:, past:], flash_prefill_attention_plain(q_tail, k, v, past, **kw)),
+              "first": (got[:, :LONG_ROWS], flash_prefill_attention_plain(
+                  q[:, :LONG_ROWS], k[:, :LONG_ROWS], v[:, :LONG_ROWS], 0, **kw))}
+    errs, tols, typical = {}, {}, {}
+    for part, (have, want) in slices.items():
+        want = want.float()
+        errs[part] = (have.float() - want).abs().max().item()
+        tols[part] = LONG_ULPS * bf16_ulp(want.abs().max().item())
+        typical[part] = want.abs().mean().item()
+    err, tol = errs["last"], tols["last"]
+    finite = bool(torch.isfinite(got).all())
+    ms = time_ms(lambda: flash_prefill_attention(q, k, v, 0, **kw), 3)
+    plain_ms = time_ms(lambda: flash_prefill_attention_plain(q_tail, k, v, past, **kw), 1)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 3)
+    except RuntimeError as exc:  # no fused backend takes the call: not timed
+        log(f"[kernel] {name}: SDPA without its math backend refused: {exc}")
+        library_ms = None
+    bound_ms, bound_by = flash_bound(1, t, t, 0, hq, hkv, dh, 0, torch.bfloat16)
+    del got, slices, q, k, v, q_tail, qt, kt, vt
+    free_cuda()
+    passed = finite and all(errs[p] <= tols[p] for p in errs)
+    log(f"[kernel] {name}: {'PASS' if passed else 'FAIL'} max_abs_err={err:.3g} (last "
+        f"{LONG_ROWS} rows; mean |want| {typical['last']:.3g}) tol={tol:.3g} ({LONG_ULPS} "
+        f"bf16 ulps of max |want|), first {LONG_ROWS} rows {errs['first']:.3g} (mean |want| "
+        f"{typical['first']:.3g}, tol {tols['first']:.3g}) ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} (last {LONG_ROWS} rows) library_ms={library_ms} bound_ms="
+        f"{bound_ms:.5f} ({bound_by}) shape=B1 T{t} S{t} past0 Hq{hq} Hkv{hkv} Dh{dh} win0 "
+        f"bfloat16; the case took {time.time() - t0:.1f}s")
+    return passed, {name: dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               library_err=None)}
 
 
 def quant_bound(m, k, n, bits, dtype):
@@ -2563,19 +2665,20 @@ def kernels_idle(label, counts) -> bool:
     return not launched
 
 
-def params_on(params, device):
-    """A copy of ``params`` on ``device`` whose weights are leaves that
-    require grad."""
+def params_on(params, device, grad: bool = True):
+    """A copy of ``params`` on ``device``; with ``grad`` its weights are
+    leaves that require grad."""
     from layerskip_tpu_torch.training.recipe import trainable_tensors
 
     def leaf(w):
-        return None if w is None else w.detach().to(device).clone().requires_grad_(True)
+        return None if w is None else w.detach().to(device).clone().requires_grad_(grad)
 
     layers = dataclasses.replace(params.layers, **{
         f.name: leaf(getattr(params.layers, f.name)) for f in dataclasses.fields(params.layers)})
     out = dataclasses.replace(params, embed=leaf(params.embed), layers=layers,
                               final_norm=leaf(params.final_norm), lm_head=leaf(params.lm_head))
-    trainable_tensors(out)  # dense weights only
+    if grad:
+        trainable_tensors(out)  # dense weights only
     return out
 
 
@@ -2861,6 +2964,7 @@ P12_STREAMS = (  # (label, GenerationConfig fields) of (a)'s tp 2 streams
     ("tree3", dict(P12_SPEC, spec_tree_width=3)), ("draft8", dict(P12_SPEC, draft_quant=8)),
     ("draft4", dict(P12_SPEC, draft_quant=4)))
 P12_LONG, P12_LONG_STEPS = 2000, 32  # (b)'s sp 2 prompt and steps
+P12_TP_STEPS = 64  # (b)'s tp 2 steps: half of phase 5's, for the script's time
 P12_MOE_STEPS = 64
 SEVEN_B = "random:7b?tail_eps=0&tail_from=8"
 MOE_3B = f"random:moe-3b?tail_eps=0&tail_from={MOE_EXIT}"
@@ -3019,7 +3123,8 @@ def p12_timed(eng, prompt, eos, max_steps, **kw):
 
 def p12_7b_tp2(rank):
     """(b) 7B (``random:7b?tail_eps=0&tail_from=8``) at tp 2 through the
-    loader: AR and spec (exit 8, W 6), phase 5's prompt and steps."""
+    loader: AR and spec (exit 8, W 6), phase 5's prompt, P12_TP_STEPS
+    steps."""
     from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer, mesh_for
     from layerskip_tpu_torch.generation.engine import Engine
 
@@ -3028,8 +3133,8 @@ def p12_7b_tp2(rank):
     eng = Engine(params, cfg, device="cuda", mesh=mesh_for(1, 2))
     prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
     eos = (cfg.vocab_size + 7,)
-    out = dict(ar=p12_timed(eng, prompt, eos, FULL_STEPS),
-               spec=p12_timed(eng, prompt, eos, FULL_STEPS, generation_strategy=
+    out = dict(ar=p12_timed(eng, prompt, eos, P12_TP_STEPS),
+               spec=p12_timed(eng, prompt, eos, P12_TP_STEPS, generation_strategy=
                               "self_speculative", exit_layer=FULL_EXIT,
                               num_speculations=FULL_W),
                wq_rows=int(params.layers.wq.shape[1]), wo_k=int(params.layers.wo.shape[1]))
@@ -3194,8 +3299,8 @@ def phase12_full_width(card):
     prompt = np.random.default_rng(2).integers(3, cfg.vocab_size, size=FULL_PROMPT).tolist()
     spec = dict(generation_strategy="self_speculative", exit_layer=FULL_EXIT,
                 num_speculations=FULL_W)
-    ar = p12_tokens(eng, prompt, eos, FULL_STEPS)
-    refs["tp"] = dict(ar=ar, spec=p12_tokens(eng, prompt, eos, FULL_STEPS, **spec),
+    ar = p12_tokens(eng, prompt, eos, P12_TP_STEPS)
+    refs["tp"] = dict(ar=ar, spec=p12_tokens(eng, prompt, eos, P12_TP_STEPS, **spec),
                       tie=near_tie(params, cfg, prompt, ar)[0])
     long = np.random.default_rng(4).integers(3, cfg.vocab_size, size=P12_LONG).tolist()
     ar = p12_tokens(eng, long, eos, P12_LONG_STEPS)
@@ -3224,7 +3329,7 @@ def phase12_full_width(card):
         tie = dict(tp_ar=refs["tp"]["tie"], tp_spec=refs["tp"]["tie"], sp_ar=refs["sp"]["tie"],
                    moe_ar=refs["moe"]["tie"], moe_spec=refs["moe"]["tie"])
         good = (all(agree[k] >= tie[k] for k in agree)
-                and len(tp["ar"]["tokens"]) == len(tp["spec"]["tokens"]) == FULL_STEPS
+                and len(tp["ar"]["tokens"]) == len(tp["spec"]["tokens"]) == P12_TP_STEPS
                 and len(sp["tokens"]) == P12_LONG_STEPS
                 and tp["wq_rows"] == 2048 and tp["wo_k"] == 2048 and moe_["experts"] == 4
                 and tp["ar"]["counts"]["flash_prefill"] == 32
@@ -3742,6 +3847,445 @@ def phase13_nccl(card, work_root, first_loss_1b, single_resident):
     return ok and ok_ring, total, stats
 
 
+# ------------------------------------------------------------ phase 14
+
+
+P14_SHARDS = 4
+P14_PAIRS = 1000
+P14_EVAL_MODEL = "random:7b"
+P14_EVAL_RTOL = 1e-3  # bf16: a row's score batched against alone
+P14_FP32_RTOL = 1e-4  # fp32: card against CPU
+P14_ROLLING_TOKENS = 5000  # past the 7B preset's 4096 positions: two windows
+
+
+def hf_shards(params, cfg, n):
+    """``params`` (dense Llama) as ``n`` dicts of HF-named tensors in their
+    own dtype, the names split in sorted order."""
+    from layerskip_tpu_torch.models.params import _key_map
+
+    tensors = {"model.embed_tokens.weight": params.embed,
+               "model.norm.weight": params.final_norm}
+    if params.lm_head is not None:
+        tensors["lm_head.weight"] = params.lm_head.T
+    for i in range(cfg.num_hidden_layers):
+        for hf_name, (field, transpose) in _key_map(cfg).items():
+            w = getattr(params.layers, field)
+            if w is not None:
+                tensors[f"model.layers.{i}.{hf_name}"] = w[i].T if transpose else w[i]
+    names = sorted(tensors)
+    step = -(-len(names) // n)
+    return [{k: tensors[k].contiguous() for k in names[j:j + step]}
+            for j in range(0, len(names), step)]
+
+
+def drop_page_cache(paths):
+    """Ask the kernel to drop the files' cached pages (written back first).
+    Only a request: a tmpfs keeps them; ``resident_share`` says what stayed."""
+    for p in paths:
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def resident_share(paths) -> float:
+    """The share of the files' pages in the page cache, by ``mincore`` over a
+    read-only mapping of each (mapping reads no page)."""
+    import ctypes
+    import mmap
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_long]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    page = mmap.PAGESIZE
+    resident = pages = 0
+    for p in paths:
+        size = os.path.getsize(p)
+        n = -(-size // page)
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, fd, 0)
+            if addr in (None, ctypes.c_void_p(-1).value):
+                raise OSError(ctypes.get_errno(), f"mmap of {p} failed")
+            try:
+                vec = (ctypes.c_ubyte * n)()
+                if libc.mincore(addr, size, vec) != 0:
+                    raise OSError(ctypes.get_errno(), f"mincore of {p} failed")
+                resident += sum(b & 1 for b in vec)
+            finally:
+                libc.munmap(addr, size)
+        finally:
+            os.close(fd)
+        pages += n
+    return resident / max(pages, 1)
+
+
+def native_runtime(tmp):
+    """Phase 14 (a): ``random:1b``'s bf16 weights as 4 shards; ``load_params``
+    with the native reader == the Python reader == the weights, bit for bit,
+    each timed after asking the kernel to drop the shards' pages and then
+    with them cached, the share of pages resident before each read measured
+    (``mincore``); Levenshtein and LCS of the native library == the plain loops on
+    1000 seeded pairs."""
+    from layerskip_tpu_torch import metrics, native
+    from layerskip_tpu_torch.cli.loading import load_model_and_tokenizer
+    from layerskip_tpu_torch.models import safetensors_io
+    from layerskip_tpu_torch.models.params import load_params
+
+    params, cfg, _ = load_model_and_tokenizer("random:1b", device="cuda")
+    ckpt = os.path.join(tmp, "native_1b")
+    os.makedirs(ckpt)
+    paths = []
+    for j, part in enumerate(hf_shards(params, cfg, P14_SHARDS)):
+        paths.append(os.path.join(ckpt, f"model-{j + 1:05d}-of-{P14_SHARDS:05d}.safetensors"))
+        safetensors_io.save_file(part, paths[-1])
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    t0 = time.time()
+    native.load_library("safetensors_reader")
+    native.load_library("text_metrics")
+    build_s = time.time() - t0
+    read = {"python": lambda: [safetensors_io.load_file(p) for p in paths],
+            "native": lambda: native.load_shards(paths)}
+    secs, resident, ok = {}, {}, True
+    for cache in ("dropped", "cached"):  # the shards read into host tensors
+        for reader, fn in read.items():
+            if cache == "dropped":
+                drop_page_cache(paths)
+            resident[f"{reader}_{cache}"] = resident_share(paths)
+            t0 = time.time()
+            fn()
+            secs[f"read_{reader}_{cache}"] = time.time() - t0
+    for reader in read:  # the whole load, pages cached: read, stack, copy to the card
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = load_params(ckpt, cfg, device="cuda", reader=reader)
+        torch.cuda.synchronize()
+        secs[f"load_params_{reader}"] = time.time() - t0
+        ok &= all(same_tensor(getattr(got.layers, f.name), getattr(params.layers, f.name))
+                  for f in dataclasses.fields(got.layers)) and all(
+            same_tensor(getattr(got, f), getattr(params, f))
+            for f in ("embed", "final_norm", "lm_head"))
+        del got
+    log(f"[phase 14 (a)] random:1b bf16 in {len(paths)} shards, {nbytes / 1e9:.3f} GB under "
+        f"{ckpt}: read seconds python/native after posix_fadvise(DONTNEED) "
+        f"{secs['read_python_dropped']:.3f} / {secs['read_native_dropped']:.3f} (share of "
+        f"pages resident before the read, by mincore: {resident['python_dropped']:.3f} / "
+        f"{resident['native_dropped']:.3f}), then cached {secs['read_python_cached']:.3f} / "
+        f"{secs['read_native_cached']:.3f} (resident {resident['python_cached']:.3f} / "
+        f"{resident['native_cached']:.3f}); load_params (pages cached) "
+        f"{secs['load_params_python']:.3f} / {secs['load_params_native']:.3f}; both == the "
+        f"weights bit for bit: {ok}; g++ build of the two libraries {build_s:.1f} s")
+    del params
+    free_cuda()
+    rng = np.random.default_rng(14)
+    alphabet = list("abcde ") + ["é", "✓", "中"]
+    bad = 0
+    for _ in range(P14_PAIRS):
+        a, b = ("".join(rng.choice(alphabet, size=rng.integers(0, 60))) for _ in range(2))
+        ta, tb = a.split(), b.split()
+        bad += native.levenshtein(a, b) != metrics.edit_distance_plain(a, b)
+        bad += metrics._lcs_len(ta, tb) != metrics.lcs_len_plain(ta, tb)
+    log(f"[phase 14 (a)] Levenshtein and LCS on {P14_PAIRS} seeded pairs: {bad} "
+        f"differences from the plain loops")
+    ok &= bad == 0
+    return ok, dict(native_load_s=secs, native_resident=resident, shard_bytes=nbytes)
+
+
+def eval_docs(seed):
+    """16 four-choice docs: 8 contexts of 300-370 bytes (scored in bucket
+    512) and 8 of 1100-1800 (bucket 2048), at a byte a token."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return " ".join(str(w) for w in rng.integers(10**4, 10**5, size=n // 6 + 1))[:n]
+
+    return [{"query": text(300 + 10 * i if i < 8 else 1100 + 100 * (i - 8)),
+             "choices": [" " + text(int(rng.integers(8, 24))) for _ in range(4)],
+             "gold": i % 4} for i in range(16)]
+
+
+def mc_rows(wrap, docs):
+    """The (context, continuation) rows ``run_local_mc`` scores for ``docs``."""
+    rows = []
+    for d in docs:
+        ctx_enc = wrap.tok_encode(d["query"])
+        for choice in d["choices"]:
+            rows.append((ctx_enc, wrap.tok_encode(d["query"] + choice)[len(ctx_enc):]))
+    return rows
+
+
+def eval_full_width(tmp):
+    """Phase 14 (b): ``cli.eval.main --tasks local:<16 docs>`` at 7B in bf16
+    (K1 on the tensor cores), acc and acc_norm in [0, 1]; the scores of a
+    batch == the rows alone; ``loglikelihood_rolling`` over 5000 tokens ==
+    its windows' sum; then phase 4's narrow fp32 model, scored on the card
+    (K1 on the CUDA cores) == on the CPU."""
+    from layerskip_tpu_torch.cli import eval as ev
+    from layerskip_tpu_torch.cli import loading
+    from layerskip_tpu_torch.cli.args import Arguments
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.generator import LlamaGenerator
+
+    class ByteTokenizer(loading.SimpleTokenizer):
+        """The byte tokenizer without its 512-byte cap, so contexts reach
+        bucket 2048."""
+
+        def encode(self, text):
+            return [1 + (b % (self.vocab_size - 2)) for b in text.encode()]
+
+    docs = eval_docs(14)
+    task = os.path.join(tmp, "mc16.jsonl")
+    with open(task, "w") as f:
+        f.write("\n".join(json.dumps(d) for d in docs))
+    kept = {}
+
+    def load(args):
+        params, cfg, _ = loading.load_from_args(args)
+        kept.update(params=params, cfg=cfg)
+        return params, cfg, ByteTokenizer(cfg.vocab_size)
+
+    out_dir = os.path.join(tmp, "eval_out")
+    gen_cfg = GenerationConfig(max_steps=8, sample=False)
+    ev.load_from_args = load
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = ev.main(Arguments(model=P14_EVAL_MODEL, device="cuda", output_dir=out_dir),
+                          ev.EvalArguments(tasks=f"local:{task}", batch_size=8), gen_cfg)
+    finally:
+        ev.load_from_args = loading.load_from_args
+    main_s = time.time() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    r = res["results"]["mc16.jsonl"]
+    written = [n for n in os.listdir(out_dir) if n.startswith("eval_")]
+    ok = (0.0 <= r["acc"] <= 1.0 and 0.0 <= r["acc_norm"] <= 1.0 and r["num_requests"] == 64
+          and len(written) == 1)
+    k1_ok = counts["flash_prefill"] > 0 and \
+        counts["flash_prefill_tensor_core"] == counts["flash_prefill"]
+    ok &= k1_ok
+    log(f"[phase 14 (b)] cli.eval.main {P14_EVAL_MODEL} bf16, local:mc16.jsonl (16 docs, 64 "
+        f"rows, buckets 512 and 2048, batch 8): {json.dumps(r)}; {main_s:.1f} s with the "
+        f"load; peak {peak / 1e9:.2f} GB; K1 {counts['flash_prefill']} launches, "
+        f"{counts['flash_prefill_tensor_core']} on the tensor cores; wrote {written}")
+    for name in written:
+        with open(os.path.join(out_dir, name)) as f:
+            log(f"[phase 14 (b)] {name}: {json.dumps(json.load(f))}")
+
+    params, cfg = kept.pop("params"), kept.pop("cfg")
+    wrap = ev.EvalHarnessLM(LlamaGenerator(ByteTokenizer(cfg.vocab_size), params, cfg,
+                                           device="cuda"), gen_cfg, batch_size=8)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    again = ev.run_local_mc(wrap, task)
+    torch.cuda.synchronize()
+    mc_s = time.time() - t0
+    ok &= again == r
+    rows = mc_rows(wrap, docs)
+    batched = wrap._loglikelihood_tokens([ev._Instance((None, c, k)) for c, k in rows])
+    picks = [0, 5, 18, 31, 32, 45, 58, 63]  # rows of both buckets
+    alone = [wrap.scorer.score_batch([rows[i]])[0] for i in picks]
+    rel = max(abs(batched[i][0] - a[0]) / max(abs(a[0]), 1e-9) for i, a in zip(picks, alone))
+    same_greedy = all(batched[i][1] == a[1] for i, a in zip(picks, alone))
+    ok &= rel <= P14_EVAL_RTOL and same_greedy
+    text = " ".join(str(w) for w in np.random.default_rng(15).integers(
+        10**4, 10**5, size=P14_ROLLING_TOKENS // 6 + 1))[:P14_ROLLING_TOKENS]
+    toks = wrap.tok_encode(text)
+    windows = ev.rolling_token_windows(toks, wrap.eot_token_id, cfg.max_position_embeddings)
+    rolling = wrap.loglikelihood_rolling([text])[0]
+    parts = sum(wrap.scorer.score_batch([w])[0][0] for w in windows)
+    roll_rel = abs(rolling - parts) / max(abs(parts), 1e-9)
+    ok &= roll_rel <= P14_EVAL_RTOL and len(windows) > 1
+    log(f"[phase 14 (b)] run_local_mc again {mc_s:.3f} s for 64 rows (== main's result: "
+        f"{again == r}); {len(picks)} rows batched vs alone: largest relative gap {rel:.3g} "
+        f"(<= {P14_EVAL_RTOL}), greedy flags equal {same_greedy}; loglikelihood_rolling over "
+        f"{len(toks)} tokens ({len(windows)} windows) {rolling:.4f} vs its windows' sum "
+        f"{parts:.4f}: relative gap {roll_rel:.3g}")
+    del wrap, params
+    free_cuda()
+
+    # phase 4's fp32 model: the card (K1 on the CUDA cores) == the CPU
+    cfg32, p32 = small_fp32_model()
+    rng = np.random.default_rng(16)
+    rows32 = [(rng.integers(1, cfg32.vocab_size, size=n).tolist(),
+               rng.integers(1, cfg32.vocab_size, size=m).tolist())
+              for n, m in ((20, 3), (45, 1), (90, 6), (130, 2), (250, 5), (300, 1), (600, 4),
+                           (700, 8), (1000, 2))]
+    cpu_scorer = ev.TokenScorer(params_on(p32, "cpu", grad=False), cfg32, max_batch=4)
+    gaps = []
+    for n, m in ((20, 3), (130, 2), (600, 4)):  # continuations the CPU model picks greedily
+        ctx = rng.integers(1, cfg32.vocab_size, size=n).tolist()
+        cont = []
+        for _ in range(m):
+            lp = cpu_scorer.logprobs(ctx + cont)[-1]
+            top2 = np.sort(lp)[-2:]
+            gaps.append(float(top2[1] - top2[0]))
+            cont.append(int(np.argmax(lp)))
+        rows32.append((ctx, cont))
+    reset_counts()
+    card = ev.TokenScorer(p32, cfg32, max_batch=4).score_batch(rows32)
+    c32 = read_counts()
+    cpu = cpu_scorer.score_batch(rows32)
+    rel32 = max(abs(a[0] - b[0]) / max(abs(b[0]), 1e-9) for a, b in zip(card, cpu))
+    greedy32 = [a[1] for a in card] == [b[1] for b in cpu]
+    n_true = sum(a[1] for a in card)
+    fp32_route = c32["flash_prefill"] > 0 and c32["flash_prefill_tensor_core"] == 0
+    ok &= rel32 <= P14_FP32_RTOL and greedy32 and n_true >= 3 and fp32_route
+    log(f"[phase 14 (b)] fp32 narrow model, {len(rows32)} rows card vs CPU: largest relative "
+        f"gap {rel32:.3g} (<= {P14_FP32_RTOL}), greedy flags equal {greedy32} ({n_true} "
+        f"true; the last 3 rows continue with the CPU model's greedy tokens, smallest top-2 "
+        f"log-prob gap {min(gaps):.3g}); K1 {c32['flash_prefill']} launches, "
+        f"{c32['flash_prefill_tensor_core']} on the tensor cores")
+    del p32
+    free_cuda()
+    return ok, counts, dict(eval_main_s=main_s, eval_rows_s=mc_s, eval_peak_bytes=peak,
+                            eval=r)
+
+
+def sweep_full_width(tmp):
+    """Phase 14 (c): ``cli.sweep.sweep`` at 7B over exit {4, 8} x W {2, 6},
+    two 200-byte prompts and 32 steps: a CSV of 4 rows; the plot's line."""
+    from layerskip_tpu_torch.cli import sweep as sw
+    from layerskip_tpu_torch.cli.args import Arguments
+    from layerskip_tpu_torch.cli.benchmark import BenchmarkArguments
+    from layerskip_tpu_torch.config import GenerationConfig
+
+    out_dir = os.path.join(tmp, "sweep_out")
+    data = write_jsonl(os.path.join(tmp, "sweep.jsonl"), entry_prompts(2, 14))
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rows = sw.sweep(Arguments(model=ENTRY_MODEL, device="cuda", output_dir=out_dir),
+                        BenchmarkArguments(dataset="custom_jsonl", data_path=data,
+                                           num_samples=2, random_shuffle=False),
+                        sw.SweepArguments(exit_layer_first=4, exit_layer_last=8,
+                                          exit_layer_step=4, num_speculations_first=2,
+                                          num_speculations_last=6, num_speculations_step=4),
+                        GenerationConfig(max_steps=32, sample=False))
+    secs = time.time() - t0
+    counts = read_counts()
+    (csv_name,) = [n for n in os.listdir(out_dir) if n.endswith(".csv")]
+    with open(os.path.join(out_dir, csv_name)) as f:
+        csv_rows = f.read().strip().splitlines()[1:]
+    plot = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith(("contour plot skipped", "wrote"))]
+    ok = len(csv_rows) == 4 and len(rows) == 4
+    log(f"[phase 14 (c)] cli.sweep {ENTRY_MODEL}, exit {{4, 8}} x W {{2, 6}}, 2 prompts, 32 "
+        f"steps: {len(csv_rows)} CSV rows in {secs:.1f} s; " + "; ".join(
+            f"exit {r['exit_layer']} W {r['num_speculations']}: acceptance "
+            f"{r['acceptance_rate']:.3f}, {r['tokens_per_second']:.2f} tok/s" for r in rows))
+    log(f"[phase 14 (c)] {' | '.join(plot)}")
+    free_cuda()
+    return ok, counts
+
+
+def script_main(name, argv):
+    """(the JSON line's dict, the launch counts) of ``scripts/<name>.py``'s
+    ``main(argv)`` run in this process; its stdout line is logged."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    free_cuda()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(argv + ["--device", "cuda"])
+    counts = read_counts()
+    log(f"[phase 14 (d)] {name} {' '.join(argv)} ({time.time() - t0:.1f} s): "
+        f"{buf.getvalue().strip()}")
+    free_cuda()
+    return result, counts
+
+
+def scripts_full_width():
+    """Phase 14 (d): the four measurement scripts in-process: serving at 7B
+    (bf16 pool: K2; then the int8 pool: K3), chunked admission at 1B,
+    a 30720-token context at 1B (K1 >= 16 launches a prefill), adaptive
+    drafting at 7B. Returns (ok, launch counts, stats)."""
+    total, stats, ok = {}, {}, True
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    serve = ["--config", "7b", "--batch", "4", "--requests", "8", "--max-steps", "64",
+             "--paged", "--prefix-cache", "--system-len", "128", "--prompt-bucket", "256"]
+    res, c = script_main("bench_torch_serving", serve)
+    add(c)
+    ok_serve = c["paged_decode_attention"] > 0 and res["prefix_stats"]["hits"] > 0
+    res_q, cq = script_main("bench_torch_serving", serve + ["--kv-quant", "--skip-gather"])
+    add(cq)
+    ok_serve &= cq["paged_decode_attention_q8"] > 0
+    # 8 requests of 64 tokens: the seed's streams meet no EOS, so every
+    # scheduler of both runs serves 512 tokens
+    want_served = 8 * 64
+    ok_serve &= set(res["served"].values()) | set(res_q["served"].values()) == {want_served}
+    log(f"[phase 14 (d)] serving: K2 {c['paged_decode_attention']} launches (bf16 pool), K3 "
+        f"{cq['paged_decode_attention_q8']} (int8 pool); tokens served per run "
+        f"{res['served']} / {res_q['served']} (want {want_served} from each) -> "
+        f"{'PASS' if ok_serve else 'FAIL'}")
+    stats["serving"], stats["serving_kv_quant"] = res, res_q
+    res, c = script_main("bench_torch_chunked", ["--config", "1b", "--long-prompt", "1024",
+                                                 "--chunk", "128"])
+    add(c)
+    stats["chunked"] = res
+    log(f"[phase 14 (d)] chunked: victim stall {res['stall_ms_plain']} ms plain, "
+        f"{res['stall_ms_chunked']} ms chunked")
+    res, c = script_main("bench_torch_longctx", ["--config", "1b", "--ctx", str(LONG_CTX),
+                                                 "--max-steps", "64", "--repeats", "1"])
+    add(c)
+    prefills = 4  # AR and spec, each a warm-up and one timed run
+    ok_long = c["flash_prefill"] >= 16 * prefills and \
+        c["flash_prefill_tensor_core"] == c["flash_prefill"] and \
+        res["ar_tokens"] == res["spec_tokens"] and len(res["ar_tokens"]) == 64
+    log(f"[phase 14 (d)] longctx: K1 {c['flash_prefill']} launches over {prefills} prefills "
+        f"of {LONG_CTX} tokens (>= 16 each), all on the tensor cores "
+        f"{c['flash_prefill_tensor_core'] == c['flash_prefill']}; greedy spec == AR "
+        f"{res['ar_tokens'] == res['spec_tokens']} ({len(res['ar_tokens'])} tokens); peak "
+        f"{res['peak_bytes'] / 1e9:.2f} GB -> {'PASS' if ok_long else 'FAIL'}")
+    stats["longctx"] = {k: res[k] for k in ("ar_tokens_per_s", "spec_tokens_per_s",
+                                            "spec_speedup", "peak_bytes")}
+    res, c = script_main("bench_torch_adaptive", ["--config", "7b", "--eps", "0.05", "--taus",
+                                                  "0", "0.5", "--max-steps", "128",
+                                                  "--repeats", "1"])
+    add(c)
+    stats["adaptive"] = res
+    ok_adapt = len(res["points"]) == 2 and res["ar_tokens_per_s"] > 0
+    ok &= ok_serve and ok_long and ok_adapt
+    return ok, total, stats
+
+
+def phase14(card, tmp):
+    """Phase 14: (a) the native runtime, (b) eval, (c) the sweep, (d) the four
+    measurement scripts. Returns (ok, launch counts of the bf16 runs,
+    stats)."""
+    ok_native, nstats = native_runtime(tmp)
+    ok_eval, ecounts, estats = eval_full_width(tmp)
+    ok_sweep, scounts = sweep_full_width(tmp)
+    ok_scripts, dcounts, dstats = scripts_full_width()
+    counts = {k: ecounts[k] + scounts[k] + dcounts.get(k, 0) for k in ecounts}
+    log(f"[phase 14 launches] (b) {json.dumps(ecounts)}; (c) {json.dumps(scounts)}; (d) "
+        f"{json.dumps(dcounts)}")
+    log(f"[phase 14] native={ok_native} eval={ok_eval} sweep={ok_sweep} "
+        f"scripts={ok_scripts} ({card})")
+    return (ok_native and ok_eval and ok_sweep and ok_scripts), counts, dict(
+        **nstats, **estats, scripts=dstats)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3770,6 +4314,9 @@ def main() -> int:
     full_cache_len = -(-(256 + FULL_STEPS + FULL_W + 2) // 512) * 512
     t0 = time.time()
     ok_kernel, kres = check_flash_prefill(full_cache_len)
+    ok_long_kernel, kres_long = check_flash_prefill_long()
+    ok_kernel &= ok_long_kernel
+    kres.update(kres_long)
     ok_quant_kernel, qres = check_quant_kernels()
     ok_paged_kernel, pres = check_paged_kernels()
     ok_kernel &= ok_quant_kernel and ok_paged_kernel
@@ -3850,13 +4397,18 @@ def main() -> int:
     log(f"[phase 13 launches] K1-K7 over every rank: (a) {json.dumps(mcounts13)}; (b)-(c) "
         f"{json.dumps(fcounts13)} (all must be 0)")
     log(f"[phase 13] {time.time() - t0:.1f}s")
-    # phases 5-8, 9 (b) and 10 (b)-(c) run in bf16 (9 (b)'s fp32 check only
-    # adds K2 launches): every K1 launch must take the tensor-core route
-    for more in (qcounts, scounts, ecounts, dfcounts, gcounts, mcounts):
+    free_cuda()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ok_apps, acounts, astats = phase14(card, tmp)
+    log(f"[phase 14] {time.time() - t0:.1f}s")
+    # phases 5-8, 9 (b), 10 (b)-(c) and 14 run in bf16 (9 (b)'s fp32 check
+    # only adds K2 launches): every K1 launch must take the tensor-core route
+    for more in (qcounts, scounts, ecounts, dfcounts, gcounts, mcounts, acounts):
         for k, v in more.items():
             counts[k] += v
     ok_route = counts["flash_prefill_tensor_core"] == counts["flash_prefill"] > 0
-    log(f"[k1 route] phases 5-10: {counts['flash_prefill']} K1 launches, "
+    log(f"[k1 route] phases 5-10 and 14: {counts['flash_prefill']} K1 launches, "
         f"{counts['flash_prefill_tensor_core']} on the tensor-core route -> "
         f"{'PASS' if ok_route else 'FAIL'}")
     ok_full &= ok_route
@@ -3864,7 +4416,7 @@ def main() -> int:
     for label, kinds in (("k4/k7", ("quant_matmul_t", "int4_matmul_t")),
                          ("k5/k6", ("quant_matmul", "int4_matmul"))):
         ok_qroute = all(counts[f"{k}_tensor_core"] == counts[k] > 0 for k in kinds)
-        log(f"[{label} route] phases 5-10: " + ", ".join(
+        log(f"[{label} route] phases 5-10 and 14: " + ", ".join(
             f"{k} {counts[k]} launches, {counts[f'{k}_tensor_core']} on the tensor cores"
             for k in kinds) + f" -> {'PASS' if ok_qroute else 'FAIL'}")
         ok_quant &= ok_qroute
@@ -3877,12 +4429,13 @@ def main() -> int:
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
         f"drafting={ok_draft} families={ok_fam} training={ok_train} parallel={ok_par} "
-        f"training_mesh={ok_mesh} {json.dumps(stats)} {json.dumps(p13stats)} "
+        f"training_mesh={ok_mesh} apps={ok_apps} {json.dumps(stats)} {json.dumps(p13stats)} "
         f"{json.dumps(qstats)} {json.dumps(sstats)} {json.dumps(estats)} {json.dumps(dstats)} "
         f"{json.dumps(gstats)} {json.dumps(mstats)} {json.dumps(tstats)} {json.dumps(tmstats)} "
+        f"{json.dumps(astats, default=str)} "
         f"launches={json.dumps(counts)} total {time.time() - t_start:.1f}s")
     if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry
-            and ok_draft and ok_fam and ok_train and ok_par and ok_mesh):
+            and ok_draft and ok_fam and ok_train and ok_par and ok_mesh and ok_apps):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]

@@ -8,8 +8,10 @@
   * means of acceptance_rate / total_time / time_per_token /
     tokens_per_second, a missing acceptance (AR runs) counted as 0.
 
-The JAX package can hand Levenshtein and LCS to an optional host C++
-library; the port keeps the Python loops, which give the same integers.
+Levenshtein and LCS run in the native host library (``native.py``, from
+``native/text_metrics.cc``), as in the JAX package; the Python loops stay as
+the plain versions ``edit_distance_plain`` and ``lcs_len_plain``, which give
+the same integers.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import math
 import re
 from collections import Counter
 from typing import Dict, List
+
+from layerskip_tpu_torch import native
 
 
 def _tokenize(text: str) -> List[str]:
@@ -43,7 +47,25 @@ def rouge_n(pred: str, target: str, n: int) -> float:
     return _fmeasure(match, max(len(pt) - n + 1, 0), max(len(tt) - n + 1, 0))
 
 
+def _intern(a: List[str], b: List[str]):
+    """The token strings of both sequences as shared int ids (for the native
+    LCS)."""
+    vocab: Dict[str, int] = {}
+
+    def ids(toks):
+        return [vocab.setdefault(t, len(vocab)) for t in toks]
+
+    return ids(a), ids(b)
+
+
 def _lcs_len(a: List[str], b: List[str]) -> int:
+    if not a or not b:
+        return 0
+    return native.lcs_length(*_intern(a, b))
+
+
+def lcs_len_plain(a: List[str], b: List[str]) -> int:
+    """The LCS length as a Python loop (the plain version of the native one)."""
     if not a or not b:
         return 0
     prev = [0] * (len(b) + 1)
@@ -61,7 +83,12 @@ def rouge_l(pred: str, target: str) -> float:
 
 
 def edit_distance(a: str, b: str) -> int:
-    """Character-level Levenshtein distance."""
+    """Character-level Levenshtein distance (the native library's)."""
+    return native.levenshtein(a, b)
+
+
+def edit_distance_plain(a: str, b: str) -> int:
+    """Character-level Levenshtein distance as a Python loop."""
     if len(a) < len(b):
         a, b = b, a
     prev = list(range(len(b) + 1))

@@ -317,17 +317,28 @@ def params_from_torch_state_dict(state_dict: Mapping, cfg: ModelConfig,
     return params_from_flat_dict(state_dict, cfg, device=device)
 
 
-def load_params(model_dir: str, cfg: ModelConfig, device="cuda") -> LlamaParams:
+def load_params(model_dir: str, cfg: ModelConfig, device="cuda",
+                reader: str = "native") -> LlamaParams:
     """Params from a local HF checkpoint directory of ``*.safetensors``
-    shards, read by the port's own reader. Tensors of names the model does
-    not read are decoded (any dtype the JAX package's reader takes) and
-    then ignored."""
+    shards. ``reader="native"`` reads the shards at once through the C++
+    reader (``native.load_shards``, as the JAX package does);
+    ``reader="python"`` reads them one after another with
+    ``safetensors_io.load_file``. Both give the same bits. Tensors of names
+    the model does not read are decoded (any dtype the JAX package's reader
+    takes) and then ignored."""
     shards = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
     if not shards:
         raise FileNotFoundError(f"no safetensors shards under {model_dir}")
     tensors: Dict[str, torch.Tensor] = {}
-    for path in shards:
-        tensors.update(safetensors_io.load_file(path))
+    if reader == "native":
+        from layerskip_tpu_torch import native
+
+        tensors = native.load_shards(shards)
+    elif reader == "python":
+        for path in shards:
+            tensors.update(safetensors_io.load_file(path))
+    else:
+        raise ValueError(f"reader must be 'native' or 'python', not {reader!r}")
     return params_from_flat_dict(tensors, cfg, device=device)
 
 

@@ -1,7 +1,8 @@
 """The port's entry points against the JAX package's, on the CPU in fp32:
 checkpoints in both directions, the generator facade, streaming, the CLI
 apps (generate, benchmark, correctness), data, metrics, args, streamers,
-the loader and the serving command line.
+the loader and the serving command line; every entry point (eval, the sweep
+and the measurement scripts too) needs a card unless the CPU is asked for.
 
 One fp32 checkpoint written by the JAX package's ``save_params`` is loaded
 by both packages' loaders; greedy tokens, decoded text, acceptance and the
@@ -137,17 +138,28 @@ def _bits(x):
 # --- the port's sources -------------------------------------------------------
 
 
+# the port's scripts beside its package: its measurement and profiling
+# scripts, the kernel scripts, and the smoke run on the card
+PORT_SCRIPTS = ("bench_flash_prefill.py", "bench_paged_decode.py", "bench_quant_matmul.py",
+                "trace_paged_decode.py", "trace_quant_matmul.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|layerskip_tpu)\b", re.M)
     root = os.path.join(REPO, "layerskip_tpu_torch")
+    paths = [os.path.join(dirpath, name) for dirpath, _, files in os.walk(root)
+             for name in files if name.endswith(".py")]
+    scripts = os.path.join(REPO, "scripts")
+    paths += [os.path.join(scripts, name) for name in sorted(os.listdir(scripts))
+              if name.endswith(".py") and ("torch" in name or name in PORT_SCRIPTS)]
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    assert sum("torch" in os.path.basename(p) for p in paths) >= 6  # the profile/bench_torch_*
+    assert all(os.path.exists(os.path.join(scripts, n)) for n in PORT_SCRIPTS)
     offenders = []
-    for dirpath, _, files in os.walk(root):
-        for name in files:
-            if name.endswith(".py"):
-                path = os.path.join(dirpath, name)
-                with open(path) as f:
-                    if pat.search(f.read()):
-                        offenders.append(os.path.relpath(path, REPO))
+    for path in paths:
+        with open(path) as f:
+            if pat.search(f.read()):
+                offenders.append(os.path.relpath(path, REPO))
     assert not offenders
 
 
@@ -685,6 +697,37 @@ def _cli_main(module, device, tmp_path):
                                            num_speculations=2))
 
 
+def _eval_main(device, tmp_path):
+    from layerskip_tpu_torch.cli import eval as teval
+
+    task = _jsonl(tmp_path / "mc.jsonl", [{"query": "q is", "choices": [" a", " b"],
+                                           "gold": 0}])
+    teval.main(targs.Arguments(model="random:tiny", device=device, output_dir=str(tmp_path)),
+               teval.EvalArguments(tasks=f"local:{task}"), GenerationConfig(max_steps=2))
+
+
+def _sweep(device, tmp_path):
+    from layerskip_tpu_torch.cli import sweep as tsweep
+    from layerskip_tpu_torch.cli.benchmark import BenchmarkArguments
+
+    tsweep.sweep(targs.Arguments(model="random:tiny", device=device, output_dir=str(tmp_path)),
+                 BenchmarkArguments(dataset="custom_jsonl", data_path=_jsonl(
+                     tmp_path / "d.jsonl", [{"prompt": "hi", "response": "yo"}])),
+                 tsweep.SweepArguments(exit_layer_first=2, exit_layer_last=2,
+                                       num_speculations_first=2, num_speculations_last=2),
+                 GenerationConfig(max_steps=2, sample=False))
+
+
+def _script_main(name, argv):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return lambda dev, tmp: mod.main(argv + ["--config", "tiny", "--device", dev])
+
+
 ENTRY_POINTS = {
     "load_model_and_tokenizer": lambda dev, tmp: tload("random:tiny", device=dev),
     "LlamaGenerator": lambda dev, tmp: LlamaGenerator(
@@ -692,8 +735,19 @@ ENTRY_POINTS = {
     "cli.generate": lambda dev, tmp: _cli_main("generate", dev, tmp),
     "cli.benchmark": lambda dev, tmp: _cli_main("benchmark", dev, tmp),
     "cli.correctness": lambda dev, tmp: _cli_main("correctness", dev, tmp),
+    "cli.eval": _eval_main,
+    "cli.sweep": _sweep,
     "serving": lambda dev, tmp: serving.build_from_args(serving.parse_args(
         ["--model", "random:tiny", "--device", dev, "--port", "0"])),
+    "bench_torch_serving": lambda dev, tmp: _script_main("bench_torch_serving", [
+        "--batch", "1", "--requests", "1", "--max-steps", "4"])(dev, tmp),
+    "bench_torch_chunked": lambda dev, tmp: _script_main("bench_torch_chunked", [
+        "--prompt-bucket", "64", "--long-prompt", "40", "--chunk", "16",
+        "--max-steps", "8"])(dev, tmp),
+    "bench_torch_longctx": lambda dev, tmp: _script_main("bench_torch_longctx", [
+        "--ctx", "64", "--max-steps", "4", "--repeats", "1"])(dev, tmp),
+    "bench_torch_adaptive": lambda dev, tmp: _script_main("bench_torch_adaptive", [
+        "--eps", "0", "--taus", "0.5", "--max-steps", "4", "--repeats", "1"])(dev, tmp),
 }  # the bench's is in tests/test_torch_bench.py, beside its other runs
 
 
