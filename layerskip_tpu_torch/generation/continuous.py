@@ -57,6 +57,7 @@ from layerskip_tpu_torch.ops.paged_kv import (
     init_paged_group,
     paged_geometry,
 )
+from layerskip_tpu_torch.utils.profiling import span
 
 
 def _row_generator(device, seed: int) -> torch.Generator:
@@ -101,8 +102,10 @@ def _spec_insert_rows(
     b, p_bucket = ids.shape
     dev = ids.device
     rows = [r for r in range(b) if row_mask[r]]
-    idx = torch.as_tensor(rows, device=dev)
-    m = torch.as_tensor(np.asarray(row_mask, bool), device=dev)
+    with span("sync", site="insert.rows"):
+        idx = torch.as_tensor(rows, device=dev)
+    with span("sync", site="insert.mask"):
+        m = torch.as_tensor(np.asarray(row_mask, bool), device=dev)
     w = num_speculations
     if prefix_len is None:
         pl = torch.zeros((b,), dtype=torch.long, device=dev)
@@ -118,7 +121,8 @@ def _spec_insert_rows(
         # one table serves k, v and both layer groups: merge the inserted
         # rows' entries, then run those rows alone. Without a prefix every
         # row starts at 0, so the prompt block may take K1
-        s.early.k.table[m] = new_table[m]
+        with span("sync", site="insert.table"):  # a boolean mask's row count
+            s.early.k.table[m] = new_table[m]
         sub = s.early.k.table[idx]
         past = 0 if prefix_len is None else pl[idx]
         res = llama.forward_split(params, cfg, window_ids[idx], _rows_view(s.early, sub),
@@ -186,7 +190,8 @@ def _chunk_prefill_rows(
     prefix_len = true_len - 1) samples the first token and un-parks."""
     b = chunk_ids.shape[0]
     dev = chunk_ids.device
-    m = torch.as_tensor(np.asarray(row_mask, bool), device=dev)
+    with span("sync", site="chunk.mask"):
+        m = torch.as_tensor(np.asarray(row_mask, bool), device=dev)
     park = s.early.k.shape[2] - prompt_bucket
     past = torch.where(m, int(off), park)
     res = llama.forward_split(params, cfg, chunk_ids, s.early, s.full, past, exit_layer,
@@ -198,10 +203,21 @@ def _chunk_prefill_rows(
 class ContinuousSession:
     """Live multi-slot decode state for continuous batching: rows are
     inserted and harvested independently while other rows keep decoding.
-    One small device-to-host copy per ``step`` (done flags and counters).
     Device work runs under ``torch.inference_mode()`` and the engine's
     sharded context inside each method (``Engine.inference``; both are per
     thread, so a scheduler thread may call them).
+
+    Where the host waits for the device, each a ``sync`` span with its site
+    (``utils/profiling.py``): ``step`` reads ``done.all()`` before each round
+    (the read that finds every row done ends the loop), then the done flags
+    and counters once; a step that finishes a row reads its outputs, matches
+    and drafts, three reads more. ``insert`` copies its host arrays to the
+    device (a copy from pageable memory synchronises the stream), and over a
+    paged pool indexes the table with a boolean mask, whose row count is
+    read. Spans ``session.insert`` (rows, prompt tokens), ``session.step``
+    (rounds, tokens committed, the finished requests) and ``session.round``
+    cover the methods; ``request_ids`` holds the request each slot serves
+    (-1 for none), set by the caller before ``insert``, for those spans.
 
     The contiguous cache has ``prompt_bucket`` extra trailing slots, the
     trash zone parked rows write into. Under ``paged`` (pool_pages,
@@ -241,6 +257,7 @@ class ContinuousSession:
         with self.engine.inference():
             self.state = self._blank_state()
         self.active = np.zeros(batch, bool)  # slot holds a live request
+        self.request_ids = np.full(batch, -1, np.int64)
         # host mirrors from the last sync, for min_rounds_bound()
         self._out_len = np.zeros(batch, np.int64)
         self._steps = np.full(batch, gen_cfg.max_steps, np.int64)
@@ -296,25 +313,33 @@ class ContinuousSession:
             exit_layer=g.exit_layer, num_speculations=g.num_speculations,
             scfg=self._scfg, eos_ids=self.eos, ngram=int(g.no_repeat_ngram_size or 0))
 
-    def _multi_round(self, k: int) -> None:
-        """Up to ``k`` rounds; stops as soon as every row is done."""
+    def _multi_round(self, k: int) -> int:
+        """Up to ``k`` rounds; stops as soon as every row is done. Returns the
+        rounds run."""
         g = self.gen_cfg
         common = dict(exit_layer=g.exit_layer, num_speculations=g.num_speculations,
                       scfg=self._scfg, eos_ids=self.eos,
                       ngram=int(g.no_repeat_ngram_size or 0))
+        ran = 0
         for _ in range(k):
-            if bool(self.state.done.all()):
-                break
-            if self._tree_width > 1:
-                self.state = _tree_round(self.engine.params, self.engine.cfg, self.state,
-                                         tree_width=self._tree_width, **common)[0]
-            else:
-                self.state = _spec_round(
-                    self.engine.params, self.engine.cfg, self.state,
-                    draft_exit_prob=float(g.draft_exit_prob or 0.0),
-                    pld_ngram=self._pld_ngram,
-                    hybrid=g.generation_strategy == "hybrid", draft_params=self._draft,
-                    **common)[0]
+            with span("session.round"):
+                with span("sync", site="round.done"):
+                    done = bool(self.state.done.all())
+                if done:
+                    break
+                if self._tree_width > 1:
+                    self.state = _tree_round(self.engine.params, self.engine.cfg,
+                                             self.state, tree_width=self._tree_width,
+                                             **common)[0]
+                else:
+                    self.state = _spec_round(
+                        self.engine.params, self.engine.cfg, self.state,
+                        draft_exit_prob=float(g.draft_exit_prob or 0.0),
+                        pld_ngram=self._pld_ngram,
+                        hybrid=g.generation_strategy == "hybrid", draft_params=self._draft,
+                        **common)[0]
+            ran += 1
+        return ran
 
     # -- host side -----------------------------------------------------------
 
@@ -342,7 +367,8 @@ class ContinuousSession:
         return mask, ids, lens, seed_vec, steps_vec
 
     def _dev(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.engine.device)
+        with span("sync", site="h2d"):
+            return torch.as_tensor(x, device=self.engine.device)
 
     def insert(self, rows, prompts, seeds=None, max_tokens=None) -> None:
         """Prefill ``prompts[k]`` into slot ``rows[k]`` (others untouched).
@@ -350,6 +376,12 @@ class ContinuousSession:
         ``max_tokens[k]`` its own budget (clamped to ``max_steps``). Paged:
         raises ``PagePoolExhausted`` with the allocator restored and the
         device state untouched when the pool cannot hold them."""
+        with span("session.insert", rids=[int(self.request_ids[r]) for r in rows],
+                  rows=len(rows),
+                  prompt_tokens=sum(min(len(p), self.prompt_bucket) for p in prompts)):
+            self._insert(rows, prompts, seeds, max_tokens)
+
+    def _insert(self, rows, prompts, seeds, max_tokens) -> None:
         for r in rows:
             # the staged chunk passes would park the new request's ctx and
             # the queued finalize would bring back the old prompt
@@ -487,21 +519,30 @@ class ContinuousSession:
         """Run up to ``max_rounds`` draft+verify rounds (fewer when every
         row finishes). Returns [(row, tokens, acceptance), ...] for the rows
         that finished."""
-        with self.engine.inference():
+        with span("session.step") as sp, self.engine.inference():
             if self.has_pending_prefill():
                 # one staged chunk per step
                 self._advance_chunked_insert()
                 if not (self.active & ~self._done).any():
                     return []  # nothing decoding yet
-            self._multi_round(int(max_rounds))
+            live = self.active & ~self._done
+            before = int(np.minimum(self._out_len, self._steps)[live].sum())
+            rounds = self._multi_round(int(max_rounds))
             s = self.state
-            sync = torch.stack([s.done.long(), s.out_len, s.steps]).cpu().numpy()
+            with span("sync", site="step.flags"):
+                sync = torch.stack([s.done.long(), s.out_len, s.steps]).cpu().numpy()
             self._done, self._out_len, self._steps = sync[0].astype(bool), sync[1], sync[2]
             newly = [r for r in range(self.batch) if self.active[r] and self._done[r]]
+            sp.set(rids=[int(self.request_ids[r]) for r in newly], rounds=rounds,
+                   tokens=int(np.minimum(self._out_len, self._steps)[live].sum()) - before)
             if not newly:
                 return []
-            outs = s.out.cpu().numpy()
-            matches, drafts = s.matches.cpu().numpy(), s.drafts.cpu().numpy()
+            with span("sync", site="harvest.out"):
+                outs = s.out.cpu().numpy()
+            with span("sync", site="harvest.matches"):
+                matches = s.matches.cpu().numpy()
+            with span("sync", site="harvest.drafts"):
+                drafts = s.drafts.cpu().numpy()
         finished = []
         for r in newly:
             toks = outs[r][:min(int(self._out_len[r]), int(self._steps[r]))].tolist()

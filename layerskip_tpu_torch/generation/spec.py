@@ -52,6 +52,7 @@ from layerskip_tpu_torch.generation.tree import _tree_round
 from layerskip_tpu_torch.models import llama
 from layerskip_tpu_torch.models.llama import LlamaParams
 from layerskip_tpu_torch.ops.kv_cache import KVCache
+from layerskip_tpu_torch.utils.profiling import span
 
 
 def _spec_prefill(
@@ -271,10 +272,9 @@ def _spec_round(
                 _row_update(s.hist, proposals, hist_len0),
                 torch.full((b,), w, dtype=torch.long, device=dev), full_verify(proposals))
 
-    def model_draft_verify():
-        """W early-exit drafts, then the stitched window through the
-        remaining layers, or, after a quantized draft, the whole window
-        through the base stack."""
+    def model_draft():
+        """W early-exit drafts: (drafts [B, W], their distributions, the
+        history with them, the last draft, the exit hiddens, the early KV)."""
         dparams = params if draft_params is None else draft_params
         early, tok, hist = s.early, s.next_tok, s.hist
         d_toks, d_probs, exit_h = [], [], []
@@ -288,7 +288,11 @@ def _spec_round(
             d_toks.append(d_tok)
             d_probs.append(probs)
             exit_h.append(r.hidden[:, 0])
-        drafts = torch.stack(d_toks, dim=1)  # [B, W]
+        return torch.stack(d_toks, dim=1), d_probs, hist, tok, exit_h, early
+
+    def model_verify(drafts, d_probs, hist, tok, exit_h, early):
+        """The stitched window through the remaining layers, or, after a
+        quantized draft, the whole window through the base stack."""
         if draft_params is None:
             vres = llama.forward_remainder(
                 params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
@@ -298,6 +302,9 @@ def _spec_round(
             vres = full_verify(drafts)
         return (drafts, torch.stack(d_probs, dim=1), hist,
                 torch.full((b,), w, dtype=torch.long, device=dev), vres)
+
+    def model_draft_verify():
+        return model_verify(*model_draft())
 
     def adaptive_draft_verify():
         """Early-exit drafts while a row's drafted token keeps a probability
@@ -357,6 +364,71 @@ def _spec_round(
                                      full_cache=KVCache(k=kf, v=vf))
         return drafts, p_draft, hist, w_dyn, vres
 
+    def accept_and_commit(drafts, p_draft, hist, w_dyn, vres):
+        """Acceptance by rejection sampling, the extra token, and the commit:
+        the round's return value."""
+        vlogits = vres.logits
+        if ngram > 0:
+            vlogits = torch.stack(
+                [ban(vlogits[:, j], hist, hist_len0 + j) for j in range(w + 1)], dim=1
+            )
+        p_verify = token_distribution(vlogits, scfg)  # [B, W+1, V]
+
+        # ---- acceptance: rejection sampling; one-hot => greedy prefix match ----
+        pv_d = torch.gather(p_verify[:, :w], 2, drafts[..., None])[..., 0]  # [B, W]
+        pd_d = torch.gather(p_draft, 2, drafts[..., None])[..., 0]
+        u = uniform((b, w), generator, dev)
+        accept = (u * pd_d < pv_d) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
+        n_raw = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [B]
+        # clamp acceptances near max_steps so committed counts match the
+        # reference's shrinking window
+        w_eff = (s.steps - s.out_len - 1).clamp(0, w)
+        n = torch.minimum(n_raw, w_eff)
+
+        # extra token: residual resample on rejection, bonus draw otherwise
+        rows = torch.arange(b, device=dev)
+        pv_n = p_verify[rows, n]  # [B, V]
+        pd_n = p_draft[rows, torch.minimum(n, w_dyn - 1)]
+        residual = (pv_n - pd_n).clamp_min(0.0)
+        residual = residual / residual.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        all_accepted = (n == w_dyn) | (n == w_eff)
+        extra_tok = draw(torch.where(all_accepted[:, None], pv_n, residual), generator, scfg)
+
+        # ---- commit: accepted drafts + extra token; KV rollback is ctx ----
+        window = torch.cat([drafts, torch.zeros((b, 1), dtype=drafts.dtype, device=dev)], 1)
+        idx = torch.arange(w + 1, device=dev)[None, :]
+        window = torch.where(idx == n[:, None], extra_tok[:, None], window)
+        active = ~s.done  # frozen rows keep buffers and counters fixed
+        out = torch.where(active[:, None], _row_update(s.out, window, s.out_len), s.out)
+        hist = torch.where(active[:, None], _row_update(hist, window, hist_len0), s.hist)
+        committed = torch.where(active, n + 1, 0)
+        out_len = s.out_len + committed
+
+        eos_hit = (_is_eos(window, eos_ids) & (idx <= n[:, None])).any(dim=1)
+        done = s.done | eos_hit | (out_len >= s.steps)
+
+        # acceptance stats: a round drafts min(W, first drafted EOS + 1) tokens,
+        # none past the max_steps clamp; matches are capped to that count
+        d_eos = _is_eos(drafts, eos_ids) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
+        eos_cap = torch.where(d_eos.any(dim=1), torch.argmax(d_eos.int(), dim=1) + 1, w)
+        drafted = torch.minimum(torch.minimum(w_eff, eos_cap), w_dyn)
+        act = active.long()
+        return (_SpecState(
+            early=vres.early_cache,
+            full=vres.full_cache,
+            ctx=s.ctx + committed,
+            prompt_len=s.prompt_len,
+            next_tok=extra_tok[:, None],
+            out=out,
+            hist=hist,
+            out_len=out_len,
+            steps=s.steps,
+            done=done,
+            matches=s.matches + torch.minimum(n, drafted) * act,
+            drafts=s.drafts + drafted * act,
+            generator=generator,
+        ), window, n)
+
     if hybrid:
         if pld_ngram <= 0 or draft_exit_prob > 0:
             raise ValueError("hybrid drafting needs pld_ngram > 0 and excludes adaptive "
@@ -373,65 +445,10 @@ def _spec_round(
     elif draft_exit_prob > 0:
         drafts, p_draft, hist, w_dyn, vres = adaptive_draft_verify()
     else:
-        drafts, p_draft, hist, w_dyn, vres = model_draft_verify()
-    vlogits = vres.logits
-    if ngram > 0:
-        vlogits = torch.stack(
-            [ban(vlogits[:, j], hist, hist_len0 + j) for j in range(w + 1)], dim=1
-        )
-    p_verify = token_distribution(vlogits, scfg)  # [B, W+1, V]
-
-    # ---- acceptance: rejection sampling; one-hot => greedy prefix match ----
-    pv_d = torch.gather(p_verify[:, :w], 2, drafts[..., None])[..., 0]  # [B, W]
-    pd_d = torch.gather(p_draft, 2, drafts[..., None])[..., 0]
-    u = uniform((b, w), generator, dev)
-    accept = (u * pd_d < pv_d) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
-    n_raw = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [B]
-    # clamp acceptances near max_steps so committed counts match the
-    # reference's shrinking window
-    w_eff = (s.steps - s.out_len - 1).clamp(0, w)
-    n = torch.minimum(n_raw, w_eff)
-
-    # extra token: residual resample on rejection, bonus draw otherwise
-    rows = torch.arange(b, device=dev)
-    pv_n = p_verify[rows, n]  # [B, V]
-    pd_n = p_draft[rows, torch.minimum(n, w_dyn - 1)]
-    residual = (pv_n - pd_n).clamp_min(0.0)
-    residual = residual / residual.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    all_accepted = (n == w_dyn) | (n == w_eff)
-    extra_tok = draw(torch.where(all_accepted[:, None], pv_n, residual), generator, scfg)
-
-    # ---- commit: accepted drafts + extra token; KV rollback is ctx ----
-    window = torch.cat([drafts, torch.zeros((b, 1), dtype=drafts.dtype, device=dev)], 1)
-    idx = torch.arange(w + 1, device=dev)[None, :]
-    window = torch.where(idx == n[:, None], extra_tok[:, None], window)
-    active = ~s.done  # frozen rows keep buffers and counters fixed
-    out = torch.where(active[:, None], _row_update(s.out, window, s.out_len), s.out)
-    hist = torch.where(active[:, None], _row_update(hist, window, hist_len0), s.hist)
-    committed = torch.where(active, n + 1, 0)
-    out_len = s.out_len + committed
-
-    eos_hit = (_is_eos(window, eos_ids) & (idx <= n[:, None])).any(dim=1)
-    done = s.done | eos_hit | (out_len >= s.steps)
-
-    # acceptance stats: a round drafts min(W, first drafted EOS + 1) tokens,
-    # none past the max_steps clamp; matches are capped to that count
-    d_eos = _is_eos(drafts, eos_ids) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
-    eos_cap = torch.where(d_eos.any(dim=1), torch.argmax(d_eos.int(), dim=1) + 1, w)
-    drafted = torch.minimum(torch.minimum(w_eff, eos_cap), w_dyn)
-    act = active.long()
-    return (_SpecState(
-        early=vres.early_cache,
-        full=vres.full_cache,
-        ctx=s.ctx + committed,
-        prompt_len=s.prompt_len,
-        next_tok=extra_tok[:, None],
-        out=out,
-        hist=hist,
-        out_len=out_len,
-        steps=s.steps,
-        done=done,
-        matches=s.matches + torch.minimum(n, drafted) * act,
-        drafts=s.drafts + drafted * act,
-        generator=generator,
-    ), window, n)
+        # the early-exit path's spans: the W draft passes, then the verify
+        # pass with acceptance and commit
+        with span("spec.draft"):
+            drafted = model_draft()
+        with span("spec.verify"):
+            return accept_and_commit(*model_verify(*drafted))
+    return accept_and_commit(drafts, p_draft, hist, w_dyn, vres)

@@ -40,7 +40,10 @@ all-reduce SUMs. K1 and the paged kernels stay off under sp, as they are
 in the JAX package (a kernel's KV dim is not split across devices).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
-plain version for CPU tensors.
+plain version for CPU tensors. While a ``torch.profiler`` records, each K1
+and K2 call appends its shapes to ``utils/profiling.RECORDS`` (K2's
+positions tensor by reference, never read here), so a device trace can put
+the kernels' times beside their rooflines.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from layerskip_tpu_torch.ops.cuda.flash_prefill import (
     HEAD_DIMS,
@@ -61,6 +65,7 @@ from layerskip_tpu_torch.ops.cuda.paged_decode import (
 from layerskip_tpu_torch.ops.kv_cache import QuantKV
 from layerskip_tpu_torch.ops.paged_kv import PagedKV, PagedQuantKV
 from layerskip_tpu_torch.parallel.collectives import all_reduce, axis
+from layerskip_tpu_torch.utils import profiling
 
 NEG_INF = -1e30  # large-but-finite: avoids NaNs from (-inf) - (-inf)
 _MAX_SHORT_QUERY = MAX_QUERY  # drafts (T=1) and verify windows (T=W+1)
@@ -96,6 +101,11 @@ def gqa_attention(
                 chain, scratch, fanout = tree_meta
                 kw.update(tree_chain=chain, tree_scratch=scratch, tree_fanout=int(fanout))
             if isinstance(k_cache, PagedKV):
+                if _autograd_profiler._is_profiler_enabled:
+                    profiling.RECORDS.add("k2", (
+                        (b, t, hq, dh), q_positions, int(k_cache.pool.shape[1]),
+                        int(k_cache.table.shape[1]) * int(k_cache.pool.shape[2]),
+                        kw["sliding_window"], q.element_size()))
                 return paged_decode_attention(q, k_cache.pool, v_cache.pool, k_cache.table,
                                               q_positions, **kw)
             return paged_decode_attention_q8(q, k_cache.pool, k_cache.scale, v_cache.pool,
@@ -108,10 +118,15 @@ def gqa_attention(
         v_cache = v_cache.dequantize(q.dtype)
     if (past_scalar is not None and tree_meta is None and t > _MAX_SHORT_QUERY
             and dh in HEAD_DIMS and sp is None):
+        window = int(sliding_window or 0)
+        if _autograd_profiler._is_profiler_enabled:
+            profiling.RECORDS.add("k1", ((b, t, hq, dh), int(k_cache.shape[1]),
+                                         int(k_cache.shape[2]), int(past_scalar), window,
+                                         q.element_size()))
         return flash_prefill_attention(
             q, k_cache, v_cache, int(past_scalar),
             q_heads_per_kv=q_heads_per_kv,
-            sliding_window=int(sliding_window or 0),
+            sliding_window=window,
             score_scale=float(score_scale or 0.0),
             logit_softcap=float(logit_softcap or 0.0),
         )

@@ -20,12 +20,20 @@ Each scheduler runs its device work on its own thread; the session and the
 engine enter ``torch.inference_mode()`` themselves, since the mode is per
 thread. A failed batch or round resolves every pending future with the
 exception and the scheduler keeps running.
+
+Spans (``utils/profiling.py``): each request is a ``request`` span from
+``submit`` to its future's resolution (prompt tokens, tokens returned) with
+a child ``queue`` span from submit to admission; the continuous scheduler's
+``sched.loop`` covers one pass of its loop, ``sched.wait`` the blocking
+wait for a request when no row is active. Request ids reach the session's
+spans through ``ContinuousSession.request_ids``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import json
 import queue
 import threading
@@ -38,6 +46,10 @@ import torch
 from layerskip_tpu_torch.config import GenerationConfig
 from layerskip_tpu_torch.generation.engine import Engine, postprocess_batch
 from layerskip_tpu_torch.ops.paged_kv import PagePoolExhausted
+from layerskip_tpu_torch.utils import profiling
+from layerskip_tpu_torch.utils.profiling import NULL_SPAN, detached, span
+
+_REQUEST_IDS = itertools.count()  # unique in the process, for the spans
 
 
 @dataclasses.dataclass
@@ -47,30 +59,66 @@ class _Request:
     future: Future
     rng_seed: int = 0
     max_tokens: int = 0  # 0 => the scheduler's max_steps
-    t_submit: float = 0.0  # for latency stats
-    t_start: float = 0.0  # when the request entered a device batch
+    t_start: float = 0.0  # when the request entered a device batch (time.time())
+    rid: int = -1
+    span: object = NULL_SPAN  # ``request``: submit to resolution
+    queue_span: object = NULL_SPAN  # ``queue``: submit (or a wait for pages) to admission
+
+    @classmethod
+    def new(cls, prompt_ids, gen_cfg: GenerationConfig, rng_seed: int = 0,
+            max_tokens: int = 0) -> "_Request":
+        """A request submitted now, its ``request`` and ``queue`` spans open."""
+        rid = next(_REQUEST_IDS)
+        prompt = list(prompt_ids)
+        req_span = detached("request", rids=(rid,), prompt_tokens=len(prompt))
+        return cls(prompt, gen_cfg, Future(), rng_seed, max_tokens, rid=rid, span=req_span,
+                   queue_span=detached("queue", parent=req_span, rids=(rid,)))
+
+    def admitted(self) -> None:
+        self.queue_span.end()
+
+    def requeued(self) -> None:
+        """Back in a queue after admission (held for pages): a new wait."""
+        self.queue_span = detached("queue", parent=self.span, rids=(self.rid,))
+
+    def resolve(self, tokens=None, exc: Optional[BaseException] = None,
+                latency: Optional["_LatencyRecorder"] = None) -> bool:
+        """Close the spans and resolve the future with ``tokens`` or ``exc``;
+        False (nothing done) when it was resolved already."""
+        if self.future.done():
+            return False
+        self.queue_span.end()
+        if exc is not None:
+            self.span.end(error=1)
+            self.future.set_exception(exc)
+            return True
+        self.span.end(tokens=len(tokens))
+        if latency is not None:
+            latency.record(self)
+        self.future.set_result(tokens)
+        return True
 
 
 class _LatencyRecorder:
-    """Ring buffer of per-request latencies -> percentile summary: queue
-    wait (submit to first dispatch), serve time (dispatch to done) and time
-    per committed token, on the host clock."""
+    """The last ``window`` served requests' ``request`` and ``queue`` spans
+    -> percentile summary: queue wait (submit to the last admission), serve
+    time (admission to done) and time per returned token. Empty while spans
+    are off (``utils/profiling.ENABLED``)."""
 
     def __init__(self, window: int = 512):
         self._buf = collections.deque(maxlen=window)
         self._lock = threading.Lock()
 
-    def record(self, req: _Request, n_tokens: int) -> None:
-        now = time.time()
-        if not req.t_submit:
+    def record(self, req: _Request) -> None:
+        if req.span.end_ns is None or req.queue_span.end_ns is None:
             return
-        start = req.t_start or req.t_submit
         with self._lock:
-            self._buf.append((start - req.t_submit, now - start, max(int(n_tokens), 1)))
+            self._buf.append((req.span, req.queue_span))
 
     def summary(self) -> dict:
         with self._lock:
-            rows = list(self._buf)
+            rows = [((q.end_ns - r.start_ns) * 1e-9, (r.end_ns - q.end_ns) * 1e-9,
+                     max(int(r.attrs.get("tokens", 1)), 1)) for r, q in self._buf]
         if not rows:
             return {"window": 0}
 
@@ -125,10 +173,9 @@ class BatchScheduler:
     def submit(self, prompt_ids: List[int], gen_cfg: GenerationConfig,
                rng_seed: int = 0) -> Future:
         """Returns a Future resolving to the generated token list."""
-        fut: Future = Future()
-        self._queue.put(_Request(list(prompt_ids), gen_cfg, fut, rng_seed,
-                                 t_submit=time.time()))
-        return fut
+        req = _Request.new(prompt_ids, gen_cfg, rng_seed)
+        self._queue.put(req)
+        return req.future
 
     def generate(self, prompt_ids, gen_cfg, rng_seed: int = 0, timeout=None):
         return self.submit(prompt_ids, gen_cfg, rng_seed).result(timeout)
@@ -171,12 +218,12 @@ class BatchScheduler:
                 self._run_batch(batch)
             except Exception as exc:  # a failed batch fails its requests only
                 for req in batch:
-                    if not req.future.done():
-                        req.future.set_exception(exc)
+                    req.resolve(exc=exc)
 
     def _run_batch(self, batch: List[_Request]) -> None:
         for req in batch:
             req.t_start = time.time()
+            req.admitted()
         gen_cfg = batch[0].gen_cfg
         pad_rows = self.batch_size - len(batch)
         prompts = [r.prompt_ids for r in batch] + [batch[0].prompt_ids] * pad_rows
@@ -187,8 +234,7 @@ class BatchScheduler:
         out = self.engine.generate(prompts, gen_cfg, gens, eos)
         rows = postprocess_batch(out, eos, gen_cfg.max_steps)
         for req, row in zip(batch, rows):
-            req.future.set_result(row)
-            self.latency.record(req, len(row))
+            req.resolve(row, latency=self.latency)
         self.stats["batches"] += 1
         self.stats["requests"] += len(batch)
         self.stats["padded_rows"] += pad_rows
@@ -236,11 +282,10 @@ class ContinuousBatchScheduler:
         self.latency = _LatencyRecorder()
 
     def submit(self, prompt_ids: List[int], seed: int = 0, max_tokens: int = 0) -> Future:
-        fut: Future = Future()
-        self._queue.put(_Request(list(prompt_ids), self.gen_cfg, fut, seed, max_tokens,
-                                 t_submit=time.time()))
+        req = _Request.new(prompt_ids, self.gen_cfg, seed, max_tokens)
+        self._queue.put(req)
         self.stats["requests"] += 1
-        return fut
+        return req.future
 
     def generate(self, prompt_ids, timeout=None, seed: int = 0, max_tokens: int = 0):
         return self.submit(prompt_ids, seed, max_tokens).result(timeout)
@@ -255,15 +300,28 @@ class ContinuousBatchScheduler:
         if self._thread:
             self._thread.join(timeout=30)
 
+    def _next_request(self, wait: bool) -> Optional[_Request]:
+        """The next queued request, or None; ``wait``: for up to 50 ms (a
+        ``sched.wait`` span)."""
+        if not wait:
+            try:
+                return self._queue.get_nowait()
+            except queue.Empty:
+                return None
+        with span("sched.wait"):
+            try:
+                return self._queue.get(timeout=0.05)
+            except queue.Empty:
+                return None
+
     def _fill_slots(self, block: bool) -> None:
         rows, prompts, seeds, budgets, reqs = [], [], [], [], []
         for slot in self.session.free_slots():
             if self._held:
                 req = self._held.pop(0)
             else:
-                try:
-                    req = self._queue.get(timeout=0.05 if block and not rows else 0)
-                except queue.Empty:
+                req = self._next_request(block and not rows)
+                if req is None:
                     break
             rows.append(slot)
             prompts.append(req.prompt_ids)
@@ -271,7 +329,9 @@ class ContinuousBatchScheduler:
             budgets.append(req.max_tokens)
             reqs.append(req)
             req.t_start = time.time()
+            req.admitted()
             self._slot_req[slot] = req
+            self.session.request_ids[slot] = req.rid
         if not rows:
             return
         try:
@@ -298,52 +358,53 @@ class ContinuousBatchScheduler:
             al = self.session.allocator
             for slot, req in list(zip(rows, reqs))[admitted:]:
                 self._slot_req.pop(slot, None)
+                self.session.request_ids[slot] = -1
                 need = (min(len(req.prompt_ids), self.session.prompt_bucket)
                         + (req.max_tokens or self.gen_cfg.max_steps)
                         + self.gen_cfg.num_speculations + 2)
                 if al.pages_needed(need) > al.pool_pages:
-                    req.future.set_exception(exc)  # can never fit
+                    req.resolve(exc=exc)  # can never fit
                 else:
+                    req.requeued()
                     self._held.append(req)
                     self.stats["held_for_pages"] += 1
         except Exception as exc:  # a failed insert fails its requests only
             for slot in rows:
-                req = self._slot_req.pop(slot)
-                if not req.future.done():
-                    req.future.set_exception(exc)
+                self._slot_req.pop(slot).resolve(exc=exc)
 
     def _loop(self) -> None:
         while not self._stop.is_set():
-            if not self.session.has_pending_prefill():
-                # one chunked insert in flight at a time
-                self._fill_slots(block=not self.session.has_active())
-            if not (self.session.has_active() or self.session.has_pending_prefill()):
-                continue
-            # one multi-round step per completion wave when no waiting
-            # request could join (all slots busy, or nothing queued): it
-            # returns when the earliest row could have used its budget
-            # (min_rounds_bound); single rounds while a free slot could be
-            # filled. EOS may end a row early; max_wave_rounds caps how long
-            # it waits for harvest.
-            can_join = bool(self.session.free_slots()) and not self._queue.empty()
-            rounds = (1 if can_join or self.session.has_pending_prefill()
-                      else min(self.session.min_rounds_bound(), self.max_wave_rounds))
-            try:
-                finished = self.session.step(max_rounds=rounds)
-            except Exception as exc:  # resolve every pending request, go on
-                for slot, req in list(self._slot_req.items()):
-                    if not req.future.done():
-                        req.future.set_exception(exc)
-                    self._slot_req.pop(slot, None)
-                continue
-            self.stats["rounds"] += 1
-            for row, tokens, acceptance in finished:
-                req = self._slot_req.pop(row, None)
-                if req is not None and not req.future.done():
-                    req.future.set_result(tokens)
-                    self.latency.record(req, len(tokens))
-                    self.stats["completed"] += 1
-                    self.stats["acceptance_sum"] += acceptance
+            with span("sched.loop"):
+                self._loop_once()
+
+    def _loop_once(self) -> None:
+        if not self.session.has_pending_prefill():
+            # one chunked insert in flight at a time
+            self._fill_slots(block=not self.session.has_active())
+        if not (self.session.has_active() or self.session.has_pending_prefill()):
+            return
+        # one multi-round step per completion wave when no waiting
+        # request could join (all slots busy, or nothing queued): it
+        # returns when the earliest row could have used its budget
+        # (min_rounds_bound); single rounds while a free slot could be
+        # filled. EOS may end a row early; max_wave_rounds caps how long
+        # it waits for harvest.
+        can_join = bool(self.session.free_slots()) and not self._queue.empty()
+        rounds = (1 if can_join or self.session.has_pending_prefill()
+                  else min(self.session.min_rounds_bound(), self.max_wave_rounds))
+        try:
+            finished = self.session.step(max_rounds=rounds)
+        except Exception as exc:  # resolve every pending request, go on
+            for slot, req in list(self._slot_req.items()):
+                req.resolve(exc=exc)
+                self._slot_req.pop(slot, None)
+            return
+        self.stats["rounds"] += 1
+        for row, tokens, acceptance in finished:
+            req = self._slot_req.pop(row, None)
+            if req is not None and req.resolve(tokens, latency=self.latency):
+                self.stats["completed"] += 1
+                self.stats["acceptance_sum"] += acceptance
 
 
 def make_server(scheduler, tokenizer, default_cfg: GenerationConfig,
@@ -352,7 +413,8 @@ def make_server(scheduler, tokenizer, default_cfg: GenerationConfig,
 
     POST /generate  {"prompt": "...", "max_steps": 64, ...} ->
                     {"text": "...", "tokens": [...]}
-    GET  /healthz   -> {"ok": true, "stats": {...}}
+    GET  /healthz   -> {"ok": true, "stats": {..., "latency": {...}},
+                        "spans": {name: {"count", "p50_ms", "p95_ms"}}}
 
     A continuous scheduler serves one configuration: per-request overrides
     other than ``max_steps`` (the request's budget) and ``seed`` get 400."""
@@ -373,7 +435,8 @@ def make_server(scheduler, tokenizer, default_cfg: GenerationConfig,
         def do_GET(self):
             if self.path == "/healthz":
                 stats = dict(scheduler.stats, latency=scheduler.latency.summary())
-                self._json(200, {"ok": True, "stats": stats})
+                self._json(200, {"ok": True, "stats": stats,
+                                 "spans": profiling.RECORDER.summary()})
             else:
                 self._json(404, {"error": "not found"})
 
