@@ -161,6 +161,15 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      ``bench_torch_longctx`` at 1B over 30720 tokens (K1 >= 16 launches a
      prefill, greedy spec == AR, peak memory) and ``bench_torch_adaptive``
      at 7B, each JSON line logged;
+  15. continuous sessions drafting from a CUDA graph
+     (``generation/draft_graph.py``): (a) phase 4's fp32 model, graphed
+     paged (fp32 and int8 pools) and contiguous sessions == solo
+     ``generate`` exactly, one replay a round; (b) Mistral-7B's widths over
+     4 layers in bf16, graphed == eager sessions (tokens, matches, drafts)
+     over those caches and the contiguous int8 cache, and one profiled
+     round of each over the bf16 pool: K2 records equal, the trace's
+     kernel counts within 5% (``python3 chip_smoke.py --phase15`` runs this
+     phase alone);
 then a ``{"kernels": [...]}`` line, and ``{"ok": true, "device": ...}`` last.
 Every kernel count is set to 0 just before each run of phases 5 to 14 and
 read just after it (in phases 12 and 13 on every rank) (K2's and K3's tree-clause launches
@@ -4286,6 +4295,180 @@ def phase14(card, tmp):
         **nstats, **estats, scripts=dstats)
 
 
+# ------------------------------------------------------------ phase 15
+
+
+def p15_served(session, prompts, budgets, steps_before=None):
+    """Serve ``prompts`` through ``session``'s free slots as they open, one
+    round a step: ({request: (tokens, matches, drafts)}, rounds run). With
+    ``steps_before`` = (n, fn), ``fn(session)`` runs once after the n-th step."""
+    from layerskip_tpu_torch.generation import continuous
+
+    got, owner, queue = {}, {}, list(range(len(prompts)))
+    rounds, steps = [0], 0
+    spec_round = continuous._spec_round
+
+    def counted(*a, **kw):
+        rounds[0] += 1
+        return spec_round(*a, **kw)
+
+    continuous._spec_round = counted
+    try:
+        while queue or session.has_active():
+            slots = session.free_slots()[:len(queue)]
+            if slots:
+                take = [queue.pop(0) for _ in slots]
+                session.insert(slots, [prompts[i] for i in take],
+                               max_tokens=[budgets[i] for i in take])
+                owner.update(zip(slots, take))
+            for row, toks, _ in session.step(max_rounds=1):
+                got[owner[row]] = (toks, int(session.state.matches[row]),
+                                   int(session.state.drafts[row]))
+            steps += 1
+            if steps_before is not None and steps == steps_before[0]:
+                steps_before[1](session)
+    finally:
+        continuous._spec_round = spec_round
+    return got, rounds[0]
+
+
+def p15_mistral_4l():
+    """Mistral-7B's widths over 4 layers (exit 2), bf16 random weights with
+    the layers past the exit scaled by 0.03."""
+    from layerskip_tpu_torch.config import ModelConfig
+    from layerskip_tpu_torch.models.params import make_random_params
+
+    cfg = ModelConfig(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                      num_hidden_layers=4, num_attention_heads=32, num_key_value_heads=8,
+                      head_dim=128, max_position_embeddings=32768, rms_norm_eps=1e-5,
+                      rope_theta=10000.0, sliding_window=4096, dtype=torch.bfloat16)
+    return cfg, make_random_params(cfg, exit_layer=2, tail_eps=0.03, seed=15, device="cuda")
+
+
+def p15_profiled_round(session):
+    """One round under the profiler: (the K2 records it left, its kernels
+    on the device)."""
+    from layerskip_tpu_torch.utils import profiling
+
+    profiling.RECORDS.clear()
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        session.step(max_rounds=1)
+        torch.cuda.synchronize()
+    records = list(profiling.RECORDS.k2)
+    profiling.RECORDS.clear()
+    kernels = sum(1 for e in prof.events() if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False))
+    return records, kernels
+
+
+def p15_same_records(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x[0] == y[0] and x[2:] == y[2:]
+        and torch.equal(x[1].long().expand(*x[0][:2]).cpu(),
+                        y[1].long().expand(*y[0][:2]).cpu()) for x, y in zip(a, b))
+
+
+def draft_graph_phase(card):
+    """Phase 15: continuous sessions whose draft passes replay from a CUDA
+    graph (generation/draft_graph.py). (a) phase 4's fp32 model, 4 slots
+    and six requests joining as slots free: every graphed session == solo
+    ``generate`` exactly, over the fp32 and int8 paged pools and the
+    contiguous cache, with one replay a round; (b) Mistral-7B's widths over
+    4 layers in bf16 (exit 2, W 6, 8 slots, pages of 128, twelve requests
+    joining as slots free): graphed == eager sessions in tokens, matches
+    and drafts over the same three caches and the contiguous int8 cache,
+    one replay a round, and, mid-run over the bf16 pool, one profiled round
+    of each: the K2 records equal, the kernels the trace sees within 5%."""
+    import dataclasses as dc
+
+    from layerskip_tpu_torch.config import GenerationConfig
+    from layerskip_tpu_torch.generation.draft_graph import eager_reason
+    from layerskip_tpu_torch.generation.engine import Engine, postprocess_output
+
+    ok, stats = True, {}
+    cfg, params = small_fp32_model()
+    eng = Engine(params, cfg, device="cuda")
+    rng = np.random.default_rng(5)  # phase 4's requests
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in (40, 7, 60, 23, 51, 12)]
+    budgets = [40, 9, 33, 48, 5, 20]
+    eos = (cfg.vocab_size + 7,)
+    gen = GenerationConfig(max_steps=48, sample=False, generation_strategy="self_speculative",
+                           exit_layer=2, num_speculations=4)
+    caches = (("paged", False, True), ("paged int8", True, True), ("contiguous", False, False),
+              ("contiguous int8", True, False))
+    for label, kv_quant, paged in caches[:3]:
+        g = dc.replace(gen, kv_quant=kv_quant)
+        session = eng.continuous_session(g, batch=4, prompt_bucket=64, eos_ids=eos,
+                                         **(dict(paged_pool_pages=40, page_size=16)
+                                            if paged else {}))
+        graph = session.draft_graph
+        got, rounds = p15_served(session, prompts, budgets)
+        want = [postprocess_output(eng.generate(p, dc.replace(g, max_steps=m), eos_ids=eos),
+                                   eos, m) for p, m in zip(prompts, budgets)]
+        same = [got[i][0] == want[i] for i in range(len(prompts))]
+        good = (graph is not None and all(same) and graph.replays == rounds > 0)
+        ok &= good
+        log(f"[phase 15 (a)] fp32 {label}: graph {graph is not None} "
+            f"({eager_reason(session)}), session == solo for {sum(same)}/{len(same)}, "
+            f"replays {graph.replays if graph else 0} of {rounds} rounds -> "
+            f"{'PASS' if good else 'FAIL'}")
+
+    cfg, params = p15_mistral_4l()
+    eng = Engine(params, cfg, device="cuda")
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(20, 250, size=12)]
+    budgets = [int(m) for m in rng.integers(16, 64, size=12)]
+    eos = (cfg.vocab_size + 7,)
+    gen = GenerationConfig(max_steps=64, sample=False, generation_strategy="self_speculative",
+                           exit_layer=2, num_speculations=6)
+    for label, kv_quant, paged in caches:
+        g = dc.replace(gen, kv_quant=kv_quant)
+        kw = dict(paged_pool_pages=40, page_size=128) if paged else {}
+        t0 = time.time()
+        eager = eng.continuous_session(g, batch=8, prompt_bucket=256, eos_ids=eos, **kw)
+        eager.draft_graph = None
+        t1 = time.time()
+        session = eng.continuous_session(g, batch=8, prompt_bucket=256, eos_ids=eos, **kw)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        graph = session.draft_graph
+        probe = {}
+        at = None
+        if label == "paged":
+            at = (3, lambda s: probe.setdefault("eager", p15_profiled_round(s)))
+        want, eager_rounds = p15_served(eager, prompts, budgets, at)
+        if label == "paged":
+            at = (3, lambda s: probe.setdefault("graph", p15_profiled_round(s)))
+        got, rounds = p15_served(session, prompts, budgets, at)
+        same = [got[i] == want[i] for i in range(len(prompts))]
+        good = (graph is not None and all(same) and graph.replays == rounds == eager_rounds)
+        acc = sum(m for _, m, _ in got.values()) / max(sum(d for _, _, d in got.values()), 1)
+        log(f"[phase 15 (b)] bf16 4-layer Mistral {label}: graph {graph is not None}, "
+            f"graphed == eager (tokens, matches, drafts) for {sum(same)}/{len(same)} requests "
+            f"({sum(len(t) for t, _, _ in got.values())} tokens, acceptance {acc:.4f}), "
+            f"replays {graph.replays if graph else 0} of {rounds} rounds (eager {eager_rounds}), "
+            f"session built in {t2 - t1:.3f} s (eager {t1 - t0:.3f} s) -> "
+            f"{'PASS' if good else 'FAIL'}")
+        stats[f"p15_{label.replace(' ', '_')}_exact"] = all(same)
+        if label == "paged":
+            (rec_e, k_e), (rec_g, k_g) = probe["eager"], probe["graph"]
+            same_rec = p15_same_records(rec_e, rec_g)
+            near = abs(k_g - k_e) <= 0.05 * k_e
+            good &= same_rec and near and len(rec_e) > 0
+            stats.update(p15_capture_s=round(t2 - t1, 3), p15_kernels_eager=k_e,
+                         p15_kernels_graph=k_g, p15_k2_records=len(rec_g))
+            log(f"[phase 15 (b)] one profiled round: K2 records eager {len(rec_e)} graphed "
+                f"{len(rec_g)}, equal {same_rec}; kernels in the trace eager {k_e} graphed "
+                f"{k_g} (within 5%: {near}) -> {'PASS' if same_rec and near else 'FAIL'}")
+        ok &= good
+        del eager, session
+        free_cuda()
+    return ok, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4402,6 +4585,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ok_apps, acounts, astats = phase14(card, tmp)
     log(f"[phase 14] {time.time() - t0:.1f}s")
+    free_cuda()
+    t0 = time.time()
+    ok_graph, gstats15 = draft_graph_phase(card)
+    log(f"[phase 15] {time.time() - t0:.1f}s")
     # phases 5-8, 9 (b), 10 (b)-(c) and 14 run in bf16 (9 (b)'s fp32 check
     # only adds K2 launches): every K1 launch must take the tensor-core route
     for more in (qcounts, scounts, ecounts, dfcounts, gcounts, mcounts, acounts):
@@ -4429,13 +4616,15 @@ def main() -> int:
     log(f"[summary] kernels={ok_kernel} fp32_exact={ok_fp32} full_width={ok_full} "
         f"quantized_full_width={ok_quant} serving={ok_serve} entry_points={ok_entry} "
         f"drafting={ok_draft} families={ok_fam} training={ok_train} parallel={ok_par} "
-        f"training_mesh={ok_mesh} apps={ok_apps} {json.dumps(stats)} {json.dumps(p13stats)} "
+        f"training_mesh={ok_mesh} apps={ok_apps} draft_graph={ok_graph} "
+        f"{json.dumps(stats)} {json.dumps(p13stats)} {json.dumps(gstats15)} "
         f"{json.dumps(qstats)} {json.dumps(sstats)} {json.dumps(estats)} {json.dumps(dstats)} "
         f"{json.dumps(gstats)} {json.dumps(mstats)} {json.dumps(tstats)} {json.dumps(tmstats)} "
         f"{json.dumps(astats, default=str)} "
         f"launches={json.dumps(counts)} total {time.time() - t_start:.1f}s")
     if not (ok_kernel and ok_fp32 and ok_full and ok_quant and ok_serve and ok_entry
-            and ok_draft and ok_fam and ok_train and ok_par and ok_mesh and ok_apps):
+            and ok_draft and ok_fam and ok_train and ok_par and ok_mesh and ok_apps
+            and ok_graph):
         return 1
 
     main_shape = kres["flash_prefill_7b_bf16"]
@@ -4477,7 +4666,34 @@ def main() -> int:
     return 0
 
 
+def phase15_main() -> int:
+    """Phase 15 alone (``--phase15``): the environment line, the two kernels
+    it launches built, then the phase."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from layerskip_tpu_torch.ops.cuda.build import build_libraries
+
+    card = card_line()
+    log(f"[env] {card}")
+    log(f"[env] torch {torch.__version__} CUDA {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    build_libraries(("flash_prefill", "paged_decode"))
+    t0 = time.time()
+    ok, stats = draft_graph_phase(card)
+    log(f"[phase 15] {time.time() - t0:.1f}s {json.dumps(stats)}")
+    if not ok:
+        return 1
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase15"]:
+        sys.exit(phase15_main())
     if sys.argv[1:2] == ["--phase12"]:
         sys.exit(phase12_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase13"]:

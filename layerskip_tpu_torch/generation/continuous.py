@@ -41,6 +41,7 @@ from layerskip_tpu_torch.generation.core import (
     _mk_group_cache,
     _row_update,
 )
+from layerskip_tpu_torch.generation.draft_graph import DraftGraph, eager_reason
 from layerskip_tpu_torch.generation.processors import apply_ban, no_repeat_ngram_banned
 from layerskip_tpu_torch.generation.sampling import SamplingConfig, draw, token_distribution
 from layerskip_tpu_torch.generation.spec import _spec_round
@@ -219,6 +220,16 @@ class ContinuousSession:
     cover the methods; ``request_ids`` holds the request each slot serves
     (-1 for none), set by the caller before ``insert``, for those spans.
 
+    ``draft_graph``: for greedy early-exit drafting from the base weights
+    (dense, unsharded, on a CUDA device; ``draft_graph.eager_reason``
+    says why not otherwise) the session captures the W draft passes of a
+    round in one CUDA graph when it is built, over its blank state, and
+    every round replays it (the ``spec.draft`` span's ``graph`` is 1).
+    Sampled, adaptive, prompt-lookup, hybrid, tree, quantized-drafter, MoE
+    and sharded sessions draft eagerly (``draft_graph`` None, ``graph``
+    0). Insert and park update the KV pools and the page table in place,
+    at the addresses the graph holds.
+
     The contiguous cache has ``prompt_bucket`` extra trailing slots, the
     trash zone parked rows write into. Under ``paged`` (pool_pages,
     page_size) rows map logical positions through one shared page table
@@ -256,6 +267,9 @@ class ContinuousSession:
             raise ValueError("prefix_cache requires paged KV")
         with self.engine.inference():
             self.state = self._blank_state()
+            # the draft passes of each round replay from one CUDA graph,
+            # captured here over the blank state, where the session allows
+            self.draft_graph = None if eager_reason(self) else DraftGraph(self)
         self.active = np.zeros(batch, bool)  # slot holds a live request
         self.request_ids = np.full(batch, -1, np.int64)
         # host mirrors from the last sync, for min_rounds_bound()
@@ -337,7 +351,7 @@ class ContinuousSession:
                         draft_exit_prob=float(g.draft_exit_prob or 0.0),
                         pld_ngram=self._pld_ngram,
                         hybrid=g.generation_strategy == "hybrid", draft_params=self._draft,
-                        **common)[0]
+                        draft_graph=self.draft_graph, **common)[0]
             ran += 1
         return ran
 

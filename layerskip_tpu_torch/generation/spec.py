@@ -23,6 +23,14 @@ package runs ``lax.while_loop``. The draft sources:
 Committed tokens do not depend on the draft source: greedy output equals
 greedy AR for every one. The int8 KV cache (``kv_quant``) runs in every
 round.
+
+The W early-exit draft passes are one function, ``early_exit_draft``. A
+continuous session whose rounds are greedy early-exit drafts from the
+base weights (dense, unsharded, on a CUDA device) replays them from one
+CUDA graph of that function (generation/draft_graph.py), copying each
+round's inputs into its static buffers; sampled, adaptive, prompt-lookup,
+hybrid, tree, quantized-drafter, MoE and sharded sessions, and
+``spec_generate``'s solo loop, launch them eagerly.
 """
 
 from __future__ import annotations
@@ -111,6 +119,51 @@ def _spec_prefill(
         drafts=zeros.clone(),
         generator=generator,
     )
+
+
+def _ban(logits: torch.Tensor, hist: torch.Tensor, hist_len: torch.Tensor, ngram: int,
+         vocab_size: int) -> torch.Tensor:
+    """``logits`` with the no-repeat n-gram ban of ``hist`` applied (none
+    when ``ngram`` <= 0)."""
+    if ngram <= 0:
+        return logits
+    return apply_ban(logits, no_repeat_ngram_banned(hist, hist_len, ngram, vocab_size))
+
+
+def early_exit_draft(
+    params: LlamaParams,
+    cfg: ModelConfig,
+    early: KVCache,  # layers [0, E), written in place
+    next_tok: torch.Tensor,  # [B, 1] committed but not yet in KV
+    ctx: torch.Tensor,  # [B] committed context length
+    hist: torch.Tensor,  # [B, H] prompt + generated
+    hist_len0: torch.Tensor,  # [B] valid history, next_tok included
+    *,
+    exit_layer: int,
+    num_speculations: int,
+    scfg: SamplingConfig,
+    generator: Generators = None,
+    ngram: int = 0,
+):
+    """The W early-exit draft passes of a round, each through layers
+    [0, E) and the shared head: (drafts [B, W], their distributions (W of
+    [B, V]), the history with the drafts from ``hist_len0`` on, the last
+    draft [B, 1], the exit hiddens (W of [B, D]), the early KV). The eager
+    round calls it, and a session's ``DraftGraph`` captures this same
+    function (generation/draft_graph.py)."""
+    d_toks, d_probs, exit_h = [], [], []
+    tok = next_tok
+    for i in range(num_speculations):
+        r = llama.forward_early(params, cfg, tok, early, ctx + i, exit_layer)
+        logits = _ban(r.logits[:, -1], hist, hist_len0 + i, ngram, cfg.vocab_size)
+        probs = token_distribution(logits, scfg)  # [B, V]
+        d_tok = draw(probs, generator, scfg)  # [B]
+        hist = _row_update(hist, d_tok[:, None], hist_len0 + i)
+        early, tok = r.cache, d_tok[:, None]
+        d_toks.append(d_tok)
+        d_probs.append(probs)
+        exit_h.append(r.hidden[:, 0])
+    return torch.stack(d_toks, dim=1), d_probs, hist, tok, exit_h, early
 
 
 def _pld_propose(hist: torch.Tensor, hist_len: torch.Tensor, w: int, n: int
@@ -225,6 +278,7 @@ def _spec_round(
     pld_ngram: int = 0,
     hybrid: bool = False,
     draft_params: Optional[LlamaParams] = None,
+    draft_graph=None,
 ) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
     """One draft+verify round: each active row commits its accepted drafts
     plus one extra token. Returns (the new state, the round's window [B, W+1]
@@ -246,10 +300,19 @@ def _spec_round(
     ``[next_tok, drafts]`` through the full base stack (``forward_split``
     from ``s.ctx``), so committed tokens are judged by the base model and
     greedy output equals base AR. That pass rewrites the early KV the
-    drafts wrote at positions ``ctx .. ctx + W - 1``."""
+    drafts wrote at positions ``ctx .. ctx + W - 1``.
+
+    ``draft_graph`` (generation/draft_graph.py ``DraftGraph``, built by a
+    continuous session for greedy early-exit drafting with the base
+    weights) replays the W draft passes from one CUDA graph in place of
+    launching them; every other setting drafts eagerly."""
     if draft_params is not None and (pld_ngram > 0 or hybrid):
         raise ValueError("draft_params applies only to early-exit drafting, not to "
                          "prompt-lookup or hybrid drafts")
+    if draft_graph is not None and (draft_params is not None or pld_ngram > 0 or hybrid
+                                    or draft_exit_prob > 0 or ngram > 0 or scfg.sample):
+        raise ValueError("a draft graph replays greedy early-exit drafts from the base "
+                         "weights only")
     b = s.next_tok.shape[0]
     e, w = exit_layer, num_speculations
     generator = s.generator
@@ -257,9 +320,7 @@ def _spec_round(
     hist_len0 = s.prompt_len + s.out_len  # committed history incl. next_tok
 
     def ban(logits, hist, hist_len):
-        if ngram <= 0:
-            return logits
-        return apply_ban(logits, no_repeat_ngram_banned(hist, hist_len, ngram, cfg.vocab_size))
+        return _ban(logits, hist, hist_len, ngram, cfg.vocab_size)
 
     def full_verify(drafts):
         """The window [next_tok, drafts] through every layer from ``s.ctx``."""
@@ -271,24 +332,6 @@ def _spec_round(
         return (proposals, F.one_hot(proposals, cfg.vocab_size).float(),
                 _row_update(s.hist, proposals, hist_len0),
                 torch.full((b,), w, dtype=torch.long, device=dev), full_verify(proposals))
-
-    def model_draft():
-        """W early-exit drafts: (drafts [B, W], their distributions, the
-        history with them, the last draft, the exit hiddens, the early KV)."""
-        dparams = params if draft_params is None else draft_params
-        early, tok, hist = s.early, s.next_tok, s.hist
-        d_toks, d_probs, exit_h = [], [], []
-        for i in range(w):
-            r = llama.forward_early(dparams, cfg, tok, early, s.ctx + i, e)
-            logits = ban(r.logits[:, -1], hist, hist_len0 + i)
-            probs = token_distribution(logits, scfg)  # [B, V]
-            d_tok = draw(probs, generator, scfg)  # [B]
-            hist = _row_update(hist, d_tok[:, None], hist_len0 + i)
-            early, tok = r.cache, d_tok[:, None]
-            d_toks.append(d_tok)
-            d_probs.append(probs)
-            exit_h.append(r.hidden[:, 0])
-        return torch.stack(d_toks, dim=1), d_probs, hist, tok, exit_h, early
 
     def model_verify(drafts, d_probs, hist, tok, exit_h, early):
         """The stitched window through the remaining layers, or, after a
@@ -302,6 +345,12 @@ def _spec_round(
             vres = full_verify(drafts)
         return (drafts, torch.stack(d_probs, dim=1), hist,
                 torch.full((b,), w, dtype=torch.long, device=dev), vres)
+
+    def model_draft():
+        return early_exit_draft(
+            params if draft_params is None else draft_params, cfg, s.early, s.next_tok, s.ctx,
+            s.hist, hist_len0, exit_layer=e, num_speculations=w, scfg=scfg,
+            generator=generator, ngram=ngram)
 
     def model_draft_verify():
         return model_verify(*model_draft())
@@ -445,10 +494,11 @@ def _spec_round(
     elif draft_exit_prob > 0:
         drafts, p_draft, hist, w_dyn, vres = adaptive_draft_verify()
     else:
-        # the early-exit path's spans: the W draft passes, then the verify
-        # pass with acceptance and commit
-        with span("spec.draft"):
-            drafted = model_draft()
+        # the early-exit path's spans: the W draft passes (replayed from the
+        # session's graph, or launched one kernel at a time), then the
+        # verify pass with acceptance and commit
+        with span("spec.draft", graph=int(draft_graph is not None)):
+            drafted = model_draft() if draft_graph is None else draft_graph.replay(s, hist_len0)
         with span("spec.verify"):
             return accept_and_commit(*model_verify(*drafted))
     return accept_and_commit(drafts, p_draft, hist, w_dyn, vres)

@@ -43,7 +43,8 @@ Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain version for CPU tensors. While a ``torch.profiler`` records, each K1
 and K2 call appends its shapes to ``utils/profiling.RECORDS`` (K2's
 positions tensor by reference, never read here), so a device trace can put
-the kernels' times beside their rooflines.
+the kernels' times beside their rooflines; while a CUDA graph's function
+runs under ``RECORDS.calls_of``, the calls go to that block instead.
 """
 
 from __future__ import annotations
@@ -101,11 +102,12 @@ def gqa_attention(
                 chain, scratch, fanout = tree_meta
                 kw.update(tree_chain=chain, tree_scratch=scratch, tree_fanout=int(fanout))
             if isinstance(k_cache, PagedKV):
-                if _autograd_profiler._is_profiler_enabled:
+                on = _autograd_profiler._is_profiler_enabled
+                if on or profiling.RECORDS.collecting:
                     profiling.RECORDS.add("k2", (
                         (b, t, hq, dh), q_positions, int(k_cache.pool.shape[1]),
                         int(k_cache.table.shape[1]) * int(k_cache.pool.shape[2]),
-                        kw["sliding_window"], q.element_size()))
+                        kw["sliding_window"], q.element_size()), kept=on)
                 return paged_decode_attention(q, k_cache.pool, v_cache.pool, k_cache.table,
                                               q_positions, **kw)
             return paged_decode_attention_q8(q, k_cache.pool, k_cache.scale, v_cache.pool,
@@ -119,10 +121,11 @@ def gqa_attention(
     if (past_scalar is not None and tree_meta is None and t > _MAX_SHORT_QUERY
             and dh in HEAD_DIMS and sp is None):
         window = int(sliding_window or 0)
-        if _autograd_profiler._is_profiler_enabled:
+        on = _autograd_profiler._is_profiler_enabled
+        if on or profiling.RECORDS.collecting:
             profiling.RECORDS.add("k1", ((b, t, hq, dh), int(k_cache.shape[1]),
                                          int(k_cache.shape[2]), int(past_scalar), window,
-                                         q.element_size()))
+                                         q.element_size()), kept=on)
         return flash_prefill_attention(
             q, k_cache, v_cache, int(past_scalar),
             q_heads_per_kv=q_heads_per_kv,

@@ -210,20 +210,49 @@ class KernelRecords:
     roofline, appended by ``ops/attention.py`` while a profiler records:
     K1 ``(q.shape, keys, Hkv, past, window, element size)``, K2 ``(q.shape,
     the positions tensor (kept, never read there), Hkv, slots a row's table
-    maps, window, element size)``."""
+    maps, window, element size)``.
+
+    A CUDA graph's calls are launched by its replays, not by the entry
+    points: ``calls_of`` collects the calls a thread makes while the graph's
+    function runs, and each replay adds them (generation/draft_graph.py)."""
 
     def __init__(self, capacity: int = RECORD_CAPACITY):
         self.capacity = int(capacity)
         self.k1: list = []
         self.k2: list = []
         self.dropped = 0
+        self.collecting = 0  # threads inside ``calls_of``
+        self._local = threading.local()
+        self._lock = threading.Lock()
 
-    def add(self, kind: str, record: tuple) -> None:
+    def add(self, kind: str, record: tuple, kept: bool = True) -> None:
+        """Keep a call's record (``kept``: a profiler records), or give it to
+        this thread's ``calls_of`` block."""
+        calls = getattr(self._local, "calls", None)
+        if calls is not None:
+            calls.append((kind, record))
+            return
+        if not kept:
+            return
         rows = self.k1 if kind == "k1" else self.k2
         if len(rows) < self.capacity:
             rows.append(record)
         else:
             self.dropped += 1
+
+    @contextlib.contextmanager
+    def calls_of(self):
+        """The ``(kind, record)`` of every K1 and K2 call this thread makes
+        inside the block, in order, kept apart from the records."""
+        calls = self._local.calls = []
+        with self._lock:
+            self.collecting += 1
+        try:
+            yield calls
+        finally:
+            self._local.calls = None
+            with self._lock:
+                self.collecting -= 1
 
     def clear(self) -> None:
         self.k1, self.k2, self.dropped = [], [], 0

@@ -209,8 +209,8 @@ def test_kernel_records_only_while_a_profiler_records(engine):
 S = 1_000_000_000  # ns a second
 
 
-def _add(rec, name, t0, t1, parent=None):
-    sp = profiling.Span(rec, name, (), {}, False)
+def _add(rec, name, t0, t1, parent=None, **attrs):
+    sp = profiling.Span(rec, name, (), attrs, False)
     rec._open(sp, parent)
     sp.stacked, sp.start_ns, sp.end_ns = True, int(t0 * S), int(t1 * S)
     return sp
@@ -224,10 +224,11 @@ def _hand_made(rec):
     _add(rec, "sched.wait", 10.0, 10.1, a)
     _add(rec, "session.insert", 10.1, 10.2, a)
     st = _add(rec, "session.step", 10.2, 10.45, a)
-    for r0, sync, draft, verify in ((10.2, 0.002, 0.060, 0.035), (10.3, 0.001, 0.055, 0.040)):
+    for r0, sync, draft, verify, graph in ((10.2, 0.002, 0.060, 0.035, 1),
+                                           (10.3, 0.001, 0.055, 0.040, 0)):
         r = _add(rec, "session.round", r0, r0 + 0.1, st)
         _add(rec, "sync", r0, r0 + sync, r)
-        _add(rec, "spec.draft", r0 + sync, r0 + sync + draft, r)
+        _add(rec, "spec.draft", r0 + sync, r0 + sync + draft, r, graph=graph)
         _add(rec, "spec.verify", r0 + sync + draft, r0 + sync + draft + verify, r)
     _add(rec, "sync", 10.4, 10.403, st)
     b = _add(rec, "sched.loop", 11.0, 11.2)
@@ -238,7 +239,7 @@ def _hand_made(rec):
     d = _add(rec, "sched.loop", 11.95, 13.0)
     _add(rec, "session.step", 11.96, 11.99, d)
     _add(rec, "sched.wait", 11.99, 12.5, d)
-    _add(rec, "spec.draft", 12.5, 12.6)
+    _add(rec, "spec.draft", 12.5, 12.6, graph=1)
 
 
 # self time: loop a 0.5 - 0.1 - 0.1 - 0.25, loop b 0, loop c 0.4 - 0.3,
@@ -247,6 +248,8 @@ HAND = {"draft_ms.chat": 57.5, "verify_ms.chat": 37.5, "sync_wait_ms.chat": 3.0,
         "syncs_per_round.chat": 1.5, "sched_self_share.chat": 8.0,
         "sched_self_share.longdoc": 8.0, "sched_wait_share.longdoc": 15.5,
         "insert_ms.longdoc": 200.0,
+        # one of the window's two draft passes replayed the graph
+        "draft_graph_share.chat": 50.0, "draft_graph_share.longdoc": 50.0,
         # K2: q (1, 1, 1, 64) at position 3 of 8 slots: 4 keys, q and o once,
         # K and V of 4 keys, 2 bytes each: 1280 bytes in 10 ns
         "k2_roofline_rec.chat": 1280 / MEM_BYTES_PER_S / 10e-9 * 100,
@@ -293,4 +296,14 @@ def test_reader_is_none_once_the_ring_lost_window_spans(name, hand_made, monkeyp
     records.add("k1", ((1, 4, 1, 64), 4, 1, 0, 0, 2))
     records.add("k2", ((1, 1, 1, 64), np.zeros(1), 1, 8, 0, 2))
     monkeypatch.setattr(profiling, "RECORDS", records)
+    assert catalog.load_module("metrics", name).read(run) is None
+
+
+@pytest.mark.parametrize("name", ["draft_graph_share.chat", "draft_graph_share.longdoc"])
+def test_graph_share_is_none_without_the_graph_attribute(name, hand_made):
+    """A program whose draft spans carry no ``graph`` attribute gives no
+    reading, and no error."""
+    run, rec = hand_made
+    for s in rec.spans():
+        s.attrs.pop("graph", None)
     assert catalog.load_module("metrics", name).read(run) is None
