@@ -1,8 +1,10 @@
 """Everything a cell is made of, found by name: ``BENCHMARK.json`` at the
 root of the checkout, ``configs/<name>.json``, ``traffic/<name>.json``,
 ``workloads/<name>.json``, and the code files ``traffic/kinds/<kind>.py``,
-``entries/<entry>.py`` and ``metrics/<metric>.py``, loaded by path (their
-names may hold dots and dashes)."""
+``entries/<entry>.py``, ``metrics/<metric>.py``, the configuration's
+``families/<family>.py`` and ``reference/<family>.py``, and the cell's
+``checks/<check>.py``, loaded by path (their names may hold dots and
+dashes)."""
 
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ def load_module(kind: str, name: str) -> ModuleType:
 class Cell:
     name: str
     config_name: str
-    config: dict  # the HF config.json keys, plus source, reduced, assumed, layerskip
+    config: dict  # the HF config.json keys, plus source, reduced, assumed, layerskip, family
     traffic_name: str
     traffic: dict
     entry: str
@@ -60,6 +62,18 @@ class Cell:
     @property
     def tail_eps(self) -> float:
         return float(self.config["layerskip"]["tail_eps"])
+
+    @property
+    def family(self) -> str:
+        """The configuration's model family (its weights, program build and
+        reference): its ``family`` key, ``mistral`` where it has none."""
+        return str(self.config.get("family", "mistral"))
+
+    @property
+    def check(self) -> str:
+        """The comparison that decides ``correct``: the ``check`` setting,
+        ``gap`` where the cell names none."""
+        return str(self.settings.get("check", "gap"))
 
 
 def cell(name: str) -> Cell:

@@ -1,31 +1,28 @@
-"""The comparison that decides ``correct`` for a served model.
+"""What every cell's comparison shares: the sample of served requests it
+judges, and the control that takes the program's place.
 
 Once the window has closed, a sample of the requests the program finished,
-drawn from the seed and holding the one with the most served tokens, is run
-through the plain reference (``reference/model.py``), each prompt with its
-served tokens appended. For each served token the number read is the gap
-by which the reference's logit of that token lies below the reference's
-best logit at that position; the run's number is the widest gap over the
-sample. Greedy decoding serves the program's own best token, so a sound
-run reads only the rounding between the program's bf16 and the
-reference's float32 (near ties); a wrong token reads the reference's full
-margin.
+drawn from the seed and holding the one with the most served tokens, is
+handed to the cell's check (``checks/<check>.py``, ``gap`` where the cell
+names none) with the configuration family's plain reference
+(``reference/<family>.py``), each request with the records the program
+kept for it.
 
-The control takes the program's place in the same comparison: at each
-position of the same prompts and served tokens, the token that the
+The control takes the program's place in the same check: at each position
+of the same prompts and served tokens, the token that the family's
 reference computed in float8 (``precision="fp8"``) puts first is judged
 instead of the program's (``control_tokens``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from loadbench.reference.model import float32_exact, logits_at
+from loadbench.reference import float32_exact
 
 
 @dataclass
@@ -33,6 +30,7 @@ class Served:
     prompt: List[int]
     tokens: List[int]  # the tokens judged
     context: Optional[List[int]] = None  # the tokens fed after the prompt, if not these
+    records: dict = field(default_factory=dict)  # what the program kept for the request
 
 
 def sample_indices(lengths: Sequence[Tuple[int, int]], seed: int,
@@ -60,38 +58,23 @@ def sample(served: Sequence[Served], seed: int, min_tokens: int) -> List[Served]
     return [served[i] for i in sample_indices(lengths, seed, min_tokens)]
 
 
-def _spans(reqs: Sequence[Served]):
+def positions(reqs: Sequence[Served]):
+    """(sequences, spans) for ``logits_at``: each prompt with the tokens fed
+    after it, and the positions whose logits predict the judged tokens."""
     fed = [r.tokens if r.context is None else r.context for r in reqs]
     seqs = [r.prompt + f[:-1] for r, f in zip(reqs, fed)]
     spans = [(len(r.prompt) - 1, len(r.prompt) - 1 + len(f)) for r, f in zip(reqs, fed)]
     return seqs, spans
 
 
-def gaps(weights: Dict[str, torch.Tensor], hf: dict,
-         reqs: Sequence[Served]) -> Dict[str, float]:
-    """``{"max_gap": ..., "tokens": ...}`` of the judged tokens, with the
-    mean, the 90th percentile and the share of tokens that are not the
-    reference's best."""
-    seqs, spans = _spans(reqs)
-    with float32_exact():
-        ref = logits_at(weights, hf, seqs, spans, "fp32")
-    judged = []
-    for r, lg in zip(reqs, ref):
-        tok = torch.as_tensor(r.tokens, device=lg.device)
-        judged.append(lg.max(dim=-1).values - lg.gather(1, tok[:, None])[:, 0])
-    g = torch.cat(judged)
-    return {"max_gap": float(g.max()), "mean_gap": float(g.mean()),
-            "p90_gap": float(torch.quantile(g, 0.9)),
-            "off_share": float((g > 0).float().mean()), "tokens": float(g.numel())}
-
-
-def control_tokens(weights: Dict[str, torch.Tensor], hf: dict,
+def control_tokens(reference, weights: Dict[str, torch.Tensor], hf: dict,
                    reqs: Sequence[Served]) -> List[Served]:
     """The control in the program's place: at each served position of these
-    requests, the token that the reference computed in float8 puts first,
-    fed the program's tokens before it."""
-    seqs, spans = _spans(reqs)
+    requests, the token that the family's reference computed in float8 puts
+    first, fed the program's tokens before it."""
+    seqs, spans = positions(reqs)
     with float32_exact():
-        low = logits_at(weights, hf, seqs, spans, "fp8")
-    return [Served(r.prompt, lg.argmax(dim=-1).tolist(), context=r.tokens)
+        low = reference.logits_at(weights, hf, seqs, spans, "fp8")
+    return [Served(r.prompt, lg.argmax(dim=-1).tolist(), context=r.tokens,
+                   records=r.records)
             for r, lg in zip(reqs, low)]

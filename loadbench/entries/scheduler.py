@@ -1,18 +1,21 @@
 """Entry: ``ContinuousBatchScheduler.submit`` over paged KV, under an open
 loop.
 
-The main thread sends each planned request at its due time (the traffic
-kind's schedule) and stamps its completion from the future's callback; the
+The program is the configuration family's build (``families/<family>.py``:
+``engine``). The main thread sends each planned request at its due time
+(the traffic kind's schedule) and stamps its completion from the future's
+callback, with whatever ``records`` mapping the future carries; the
 scheduler runs its own thread, as it does behind the HTTP server. The
 benchmark wraps the session's ``insert`` and ``step`` (host seconds, the
 scheduler's admission stamp, output tokens committed and their model
 FLOPs, from the session's host-side counters) and counts draft+verify
 rounds. With ``trace``, once the window has closed the load goes on and
 ``trace_s`` seconds run under ``torch.profiler``, started and stopped on
-the scheduler's thread between two steps, with recorders of the K1 and K2
-calls' shapes and a named range around the MoE layer. The profiler is not
-touched before the window closes: once started it slows every launch of
-the process, so the window's host-side readings stay clean.
+the scheduler's thread between two steps, with a named range around the
+MoE layer (the program records each K1 and K2 call's shapes itself while
+a profiler records: ``profiling.RECORDS``). The profiler is not touched
+before the window closes: once started it slows every launch of the
+process, so the window's host-side readings stay clean.
 
 Cell settings: ``slots``, ``max_steps``, ``prompt_bucket``, ``page_size``,
 ``pool_pages``, ``prefix_cache``, ``trace_s`` and the traffic kind's keys.
@@ -29,11 +32,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from loadbench import catalog
 from loadbench.entries import port
 from loadbench.record import Request, Run, Span
 from loadbench.yardstick import trace as trace_mod
 from loadbench.yardstick.flops import ModelShape
-from loadbench.yardstick.roofline import flash_bound, paged_bound
 
 MOE_RANGE = "loadbench.moe_mlp"
 # seconds between warming the profiler (which stalls the scheduler for
@@ -60,67 +63,29 @@ def warm_profiler() -> None:
     prof.stop()
 
 
-class _Recorders:
-    """Shape records of K1 and K2 calls and a profiler range around the MoE
-    layer, patched where the port binds these functions, while installed."""
+class _MoeRange:
+    """A profiler range around the MoE layer, patched where the port binds
+    ``moe_mlp``, while installed."""
 
     def __init__(self):
-        self.k1, self.k2 = [], []
         self._saved = []
 
     def install(self) -> None:
         from layerskip_tpu_torch.models import llama
-        from layerskip_tpu_torch.ops import attention
 
-        k1, k2, moe = (attention.flash_prefill_attention,
-                       attention.paged_decode_attention, llama.moe_mlp)
-
-        def flash(q, k, v, past, **kw):
-            self.k1.append((tuple(q.shape), int(k.shape[1]), int(k.shape[2]), int(past),
-                            int(kw.get("sliding_window") or 0), q.element_size()))
-            return k1(q, k, v, past, **kw)
-
-        def paged(q, k_pool, v_pool, table, q_positions, **kw):
-            # the positions tensor is kept (not read: no host sync here)
-            self.k2.append((tuple(q.shape), q_positions, int(k_pool.shape[1]),
-                            int(table.shape[1]) * int(k_pool.shape[2]),
-                            int(kw.get("sliding_window") or 0), q.element_size()))
-            return k2(q, k_pool, v_pool, table, q_positions, **kw)
+        moe = llama.moe_mlp
 
         def moe_mlp(*a, **kw):
             with torch.profiler.record_function(MOE_RANGE):
                 return moe(*a, **kw)
 
-        self._saved = [(attention, "flash_prefill_attention", k1),
-                       (attention, "paged_decode_attention", k2), (llama, "moe_mlp", moe)]
-        attention.flash_prefill_attention = flash
-        attention.paged_decode_attention = paged
+        self._saved = [(llama, "moe_mlp", moe)]
         llama.moe_mlp = moe_mlp
 
     def remove(self) -> None:
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
         self._saved = []
-
-    def bounds(self) -> dict:
-        """Summed roofline seconds of the recorded calls, by kernel."""
-        k1 = 0.0
-        for (b, t, hq, dh), s, hkv, past, window, esize in self.k1:
-            k1 += flash_bound(b, t, s, past, hq, hkv, dh, window, esize)[0]
-        k2, seen = 0.0, {}
-        for shape, pos, hkv, n_slots, window, esize in self.k2:
-            key = (id(pos), shape, n_slots, window)
-            if key not in seen:
-                b, t, hq, dh = shape
-                p = pos.to("cpu", torch.int64).expand(b, t).numpy()
-                seen[key] = paged_bound(p, hq, hkv, dh, n_slots, window, esize)[0]
-            k2 += seen[key]
-        out = {}
-        if self.k1:
-            out["k1"] = k1
-        if self.k2:
-            out["k2"] = k2
-        return out
 
 
 class _Probe:
@@ -139,7 +104,7 @@ class _Probe:
         self.rounds = 0
         self.prof = None
         self.traced_s = None  # host seconds the profiler was on
-        self.recorders = _Recorders()
+        self.moe_range = _MoeRange()
         self.stats_at = {}  # scheduler stats when the window opened / closed
         self._wrap()
 
@@ -220,7 +185,7 @@ class _Probe:
         elif t >= self._start_at:
             self.prof = profiler()
             self.prof.start()
-            self.recorders.install()
+            self.moe_range.install()
             self._trace_t0 = time.perf_counter()
 
     def _after_step(self) -> None:
@@ -238,11 +203,11 @@ class _Probe:
             torch.cuda.synchronize()
         self.traced_s = time.perf_counter() - self._trace_t0
         self.prof.stop()
-        self.recorders.remove()
+        self.moe_range.remove()
 
     def close(self) -> None:
         self._restore_round()
-        self.recorders.remove()
+        self.moe_range.remove()
 
     def acceptance(self) -> Optional[float]:
         a, b = self.stats_at.get("open"), self.stats_at.get("close")
@@ -258,8 +223,9 @@ def run(cell, weights, device, seconds: float, trace: bool, t_process: float,
     from layerskip_tpu_torch.serving import ContinuousBatchScheduler
 
     st = cell.settings
-    shape = ModelShape.from_hf(cell.config)
-    engine = port.engine(cell, weights, device)
+    family = catalog.load_module("families", cell.family)
+    shape = family.model_shape(cell.config)
+    engine = family.engine(cell, weights, device)
     sched = ContinuousBatchScheduler(
         engine, port.gen_config(cell, st["max_steps"]), batch_size=int(st["slots"]),
         prompt_bucket=int(st["prompt_bucket"]), eos_ids=port.no_eos(cell),
@@ -288,8 +254,6 @@ def run(cell, weights, device, seconds: float, trace: bool, t_process: float,
     run_rec.traced_host_s = probe.traced_s
     if probe.prof is not None:
         run_rec.device = trace_mod.summarize(probe.prof.events(), ranges=(MOE_RANGE,))
-        run_rec.bounds_s = probe.recorders.bounds()
-        run_rec.calls = {"k1": probe.recorders.k1, "k2": probe.recorders.k2}
         run_rec.range_names = {"moe": MOE_RANGE}
     if sched._thread is not None and sched._thread.is_alive():
         raise RuntimeError("the scheduler's thread did not stop")
@@ -306,6 +270,7 @@ def _finisher(lock: threading.Lock):
                 rec.error = repr(exc)
             else:
                 rec.tokens = list(fut.result())
+            rec.records = dict(getattr(fut, "records", None) or {})
     return finish
 
 

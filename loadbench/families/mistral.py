@@ -1,11 +1,14 @@
-"""Random weights of a configuration, made on the device from the seed.
+"""The ``mistral`` family (HF ``MistralForCausalLM`` and
+``MixtralForCausalLM``): its random weights made on the device from the
+seed, the program under test built from them, and its FLOP count. The
+family of a configuration that names none.
 
-The identity-tail recipe, frozen here: every matrix normal(0, 0.02) in the
-served dtype, the output projections (``wo``, ``w_down``; every expert's)
-of the layers at and past the exit layer scaled by ``tail_eps``, which sets
-how often the early exit's drafts agree with the full model; norms at 1.
-One ``torch.Generator`` on the card draws each stacked tensor in one call,
-in a fixed order.
+The weights are the identity-tail recipe, frozen here: every matrix
+normal(0, 0.02) in the served dtype, the output projections (``wo``,
+``w_down``; every expert's) of the layers at and past the exit layer scaled
+by ``tail_eps``, which sets how often the early exit's drafts agree with
+the full model; norms at 1. One ``torch.Generator`` on the card draws each
+stacked tensor in one call, in a fixed order.
 
 Layout (the port's storage orientation, which both the program and the
 reference read): ``embed`` [V, D], ``lm_head`` [D, V] (untied, drawn on
@@ -21,6 +24,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from loadbench.yardstick.flops import ModelShape
 
 INIT_STD = 0.02
 
@@ -56,3 +61,28 @@ def make_weights(hf: dict, exit_layer: int, tail_eps: float, seed: int,
     out["mlp_norm"] = torch.ones((nl, d), dtype=dtype, device=device)
     out["final_norm"] = torch.ones((d,), dtype=dtype, device=device)
     return out
+
+
+def engine(cell, weights, device):
+    """The program under test over these weights (imported here, lazily)."""
+    from layerskip_tpu_torch.config import ModelConfig
+    from layerskip_tpu_torch.generation.engine import Engine
+    from layerskip_tpu_torch.models.llama import LayerParams, LlamaParams
+    from layerskip_tpu_torch.ops.cuda.build import build_libraries
+
+    if device.type == "cuda":
+        # every kernel the cell's path launches, built (or found) during set-up
+        build_libraries(["flash_prefill", "paged_decode"])
+    cfg = ModelConfig.from_hf_dict(cell.config, dtype=torch.bfloat16)
+    w = weights
+    layers = LayerParams(
+        attn_norm=w["attn_norm"], wq=w["wq"], wk=w["wk"], wv=w["wv"], wo=w["wo"],
+        mlp_norm=w["mlp_norm"], w_gate=w["w_gate"], w_up=w["w_up"], w_down=w["w_down"],
+        w_router=w.get("w_router"))
+    params = LlamaParams(embed=w["embed"], layers=layers, final_norm=w["final_norm"],
+                         lm_head=w["lm_head"])
+    return Engine(params, cfg, device=device)
+
+
+def model_shape(hf: dict) -> ModelShape:
+    return ModelShape.from_hf(hf)

@@ -1,9 +1,9 @@
 """K1's share of its roofline: the summed ``flash_bound`` (the window cuts
-the keys) of the calls recorded in the profiled stretch over K1's summed
-device time there."""
+the keys) of the calls the program recorded in the profiled stretch
+(``RECORDS.k1``) over K1's summed device time there."""
 
-from loadbench.readers import roofline
+from loadbench.spans import roofline_from_records
 
 
 def read(run):
-    return roofline(run, "k1", "flash_prefill")
+    return roofline_from_records(run, "k1", "flash_prefill")

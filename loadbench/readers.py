@@ -32,12 +32,3 @@ def step_mfu(run) -> Optional[float]:
     s = run.measured
     return s.flops / s.host_s / BF16_FLOP_PER_S * 100.0 if s.host_s > 0 else None
 
-
-def roofline(run, kernel: str, fragment: str) -> Optional[float]:
-    """A kernel's share of its roofline: the summed bound seconds of its
-    calls recorded in the profiled stretch over its summed device time
-    there (kernels whose name holds ``fragment``), as a percentage."""
-    if run.device is None or kernel not in run.bounds_s:
-        return None
-    t = run.device.kernel_seconds(fragment)
-    return run.bounds_s[kernel] / t * 100.0 if t > 0 else None

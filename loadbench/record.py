@@ -22,6 +22,9 @@ class Request:
     done: float = 0.0  # perf_counter when the whole completion came back
     tokens: Optional[List[int]] = None
     error: Optional[str] = None
+    # what the program kept for the request (the ``records`` mapping its
+    # future carries, if any), for the cell's check
+    records: dict = field(default_factory=dict)
 
     @property
     def latency_s(self) -> float:
@@ -59,11 +62,9 @@ class Run:
     traced: Span = field(default_factory=Span)  # the profiled stretch, after it
     acceptance: Optional[float] = None  # accepted / drafted over the window
     device: Optional[DeviceSummary] = None  # the profiled stretch
-    bounds_s: dict = field(default_factory=dict)  # kernel -> summed bound seconds
     range_names: dict = field(default_factory=dict)  # metric -> host range name
     late_s: float = 0.0  # the open loop's worst lateness in sending
     traced_host_s: Optional[float] = None  # host seconds the profiler was on
-    calls: dict = field(default_factory=dict)  # kernel -> calls recorded in the stretch
 
     @property
     def window_requests(self) -> List[Request]:

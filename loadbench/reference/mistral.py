@@ -2,7 +2,7 @@
 ``MistralForCausalLM`` / ``MixtralForCausalLM``), for the benchmark's
 comparison of served tokens.
 
-It reads the benchmark's own weights (``loadbench/weights.py``'s layout)
+It reads the benchmark's own weights (``families/mistral.py``'s layout)
 and runs each sequence whole, with no cache, no batching and no kernel of
 the program: RMSNorm, rotate-half RoPE (angles in float64), grouped-query
 attention under the causal rule and the sliding window (a key at j is
@@ -11,10 +11,10 @@ or the top-k mixture of experts (softmax over all experts, the chosen
 weights renormalised), the final norm and the untied head.
 
 Precision: ``"fp32"`` upcasts the bf16 weights and computes in float32
-with TF32 off (the caller turns it off: ``float32_exact()``). ``"fp8"`` is
-the control: the operands of every matrix product (activations by row,
-weights by output channel, and q, k and v by head vector) are rounded to
-float8 e4m3 with their own scales first.
+with TF32 off (the caller turns it off: ``reference.float32_exact()``).
+``"fp8"`` is the control: the operands of every matrix product
+(activations by row, weights by output channel, and q, k and v by head
+vector) are rounded to float8 e4m3 with their own scales first.
 
 It runs layer by layer over all the sequences, upcasting one layer's
 weights at a time, and attention in blocks of queries, so that a Mixtral
@@ -23,34 +23,15 @@ layer's experts (2.8 GB in bf16) are the largest transient.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-_FP8_MAX = 448.0
+from loadbench.reference import fp8_round
+
 _Q_BLOCK = 1024
-
-
-@contextlib.contextmanager
-def float32_exact():
-    """float32 products in float32 (no TF32) inside the block."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-def fp8_round(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3, scaled so each slice along ``dim``
-    spans the format, back in float32."""
-    scale = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-30) / _FP8_MAX
-    return (x / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
 
 
 class _Ops:

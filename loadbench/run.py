@@ -3,16 +3,17 @@
     python3 -m loadbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up (timed as ``setup_s``, from the process's start to the window's
-opening) makes the weights on the card from the seed, loads the port's
-kernels from the build cache inside the checkout, builds the program and
-runs the cell's ramp: the traffic's first seconds at the cell's own load,
-which launch every shape the window will. Then the window of ``--seconds``;
-with ``--trace 1`` its last ``trace_s`` seconds are profiled. Once the
-load has stopped, the peak memory is read, the program's state freed, and
-a sample of the served requests judged against the plain reference
-(``check.py``). The numbers compared, each beside its limit, are the last
-lines on standard error and the ``check`` key, last, of the result line:
-the last line on standard output.
+opening) makes the weights on the card from the seed (the configuration's
+family, ``families/<family>.py``), loads the port's kernels from the build
+cache inside the checkout, builds the program and runs the cell's ramp:
+the traffic's first seconds at the cell's own load, which launch every
+shape the window will. Then the window of ``--seconds``; with ``--trace
+1`` its last ``trace_s`` seconds are profiled. Once the load has stopped,
+the peak memory is read, the program's state freed, and a sample of the
+served requests judged by the cell's check against the family's plain
+reference (``check.py``). The numbers compared, each beside its limit, are
+the last lines on standard error and the ``check`` key, last, of the
+result line: the last line on standard output.
 
 Exits 2 without a result when no card (or fewer than the cell's) is
 present, and 3 when JAX or the JAX package was loaded.
@@ -62,19 +63,24 @@ def power_limit() -> str:
 def judge(cell, run, weights, seed: int, control: bool = False) -> dict:
     """The numbers compared, each ``{"value", "limit"}``: requests due in the
     window that never came back or failed, those whose length is not their
-    budget, and the cell's ``limits`` on the reference's reading of a sample
-    (``check.gaps``). With ``control``, the float8 reference's tokens are
-    judged in the program's place (``check.control_tokens``)."""
+    budget, and the cell's ``limits`` on what its check
+    (``checks/<check>.py``) reads of a sample against the family's
+    reference (``reference/<family>.py``). With ``control``, the float8
+    reference's tokens are judged in the program's place
+    (``check.control_tokens``)."""
     from loadbench import check
 
+    reference = catalog.load_module("reference", cell.family)
+    comparison = catalog.load_module("checks", cell.check)
     window = run.window_requests
     missing = sum(1 for r in window if r.tokens is None or r.error is not None)
     wrong_length = sum(1 for r in window if r.tokens is not None and len(r.tokens) != r.budget)
-    served = [check.Served(r.prompt, r.tokens) for r in window if r.tokens]
+    served = [check.Served(r.prompt, r.tokens, records=r.records)
+              for r in window if r.tokens]
     picked = check.sample(served, seed, int(cell.settings["check_tokens"]))
     if control and picked:
-        picked = check.control_tokens(weights, cell.config, picked)
-    read = check.gaps(weights, cell.config, picked) if picked else {}
+        picked = check.control_tokens(reference, weights, cell.config, picked)
+    read = comparison.read(reference, weights, cell.config, picked) if picked else {}
     out = {"missing": {"value": missing, "limit": 0},
            "wrong_length": {"value": wrong_length, "limit": 0}}
     for name, limit in cell.settings["limits"].items():
@@ -87,9 +93,8 @@ def measure(cell, seed: int, seconds: float, trace: bool, device):
     """(the run's record, peak bytes, the numbers compared)."""
     import torch
 
-    from loadbench.weights import make_weights
-
-    weights = make_weights(cell.config, cell.exit_layer, cell.tail_eps, seed, device)
+    family = catalog.load_module("families", cell.family)
+    weights = family.make_weights(cell.config, cell.exit_layer, cell.tail_eps, seed, device)
     kind = catalog.load_module("traffic/kinds", cell.traffic["kind"])
     plan = kind.schedule(cell.traffic, cell.settings, seed, seconds,
                          int(cell.config["vocab_size"]))
@@ -105,6 +110,8 @@ def measure(cell, seed: int, seconds: float, trace: bool, device):
 
 def result_line(cell, run, peak: int, compared: dict, trace: bool, device) -> dict:
     import torch
+
+    from loadbench import spans
 
     table = "per_layer" if trace else "end_to_end"
     metrics = {}
@@ -124,7 +131,7 @@ def result_line(cell, run, peak: int, compared: dict, trace: bool, device) -> di
         dev["busy_s"] = run.device.busy_s
         dev["window_s"] = run.device.window_s
         out["trace_extent"] = dict(run.device.extent, traced_host_s=run.traced_host_s,
-                                   calls_recorded={k: len(v) for k, v in run.calls.items()},
+                                   calls_recorded=spans.records_count(),
                                    k2_kernels=run.device.kernel_count("paged_decode_kernel"),
                                    k1_kernels=run.device.kernel_count("flash_prefill"))
         out["breakdown"] = run.device.breakdown()

@@ -130,6 +130,16 @@ def _records(kind: str) -> Optional[list]:
     return rows or None
 
 
+def records_count() -> Optional[dict]:
+    """How many K1 and K2 calls the program recorded (while a profiler
+    recorded), and how many it dropped."""
+    prof = _profiling()
+    if prof is None:
+        return None
+    r = prof.RECORDS
+    return {"k1": len(r.k1), "k2": len(r.k2), "dropped": r.dropped}
+
+
 def _bound_s(kind: str, rows: list) -> float:
     if kind == "k1":
         return sum(flash_bound(b, t, s, past, hq, hkv, dh, int(window), esize)[0]

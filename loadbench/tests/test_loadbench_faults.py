@@ -13,7 +13,7 @@ import torch
 
 from loadbench import run as bench
 from loadbench.tests.tiny import tiny_cell
-from loadbench.weights import make_weights
+from loadbench.families.mistral import make_weights
 
 CPU = torch.device("cpu")
 LIMIT = 0.01

@@ -25,6 +25,11 @@ def test_every_cell_of_the_benchmark_loads():
         assert cell.chips == w["chips"]
         catalog.load_module("entries", cell.entry)
         catalog.load_module("traffic/kinds", cell.traffic["kind"])
+        family = catalog.load_module("families", cell.family)
+        assert all(hasattr(family, f) for f in ("shapes", "make_weights", "engine",
+                                                 "model_shape"))
+        assert hasattr(catalog.load_module("reference", cell.family), "logits_at")
+        assert hasattr(catalog.load_module("checks", cell.check), "read")
     for table in ("end_to_end", "per_layer"):
         for m in b[table]:
             assert hasattr(catalog.load_module("metrics", m["name"]), "read")
@@ -115,7 +120,8 @@ def test_the_reference_imports_nothing_of_the_program():
             else:
                 continue
             assert not {n.split(".")[0] for n in names} & banned, (path, names)
-    code = ("import sys, loadbench.reference.model, loadbench.check, loadbench.weights; "
+    code = ("import sys, loadbench.reference.mistral, loadbench.check, "
+            "loadbench.checks.gap, loadbench.families.mistral; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] == "
             "'layerskip_tpu_torch'))")
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -3,9 +3,10 @@
 import pytest
 import torch
 
-from loadbench.reference.model import fp8_round, logits_at
+from loadbench.families.mistral import engine, make_weights
+from loadbench.reference import fp8_round
+from loadbench.reference.mistral import logits_at
 from loadbench.tests.tiny import tiny_cell
-from loadbench.weights import make_weights
 
 
 def _port_logits(cell, w, ids):
@@ -13,10 +14,8 @@ def _port_logits(cell, w, ids):
     from layerskip_tpu_torch.generation.core import _mk_group_cache
     from layerskip_tpu_torch.models import llama
 
-    from loadbench.entries import port
-
     cfg = ModelConfig.from_hf_dict(cell.config, dtype=torch.float32)
-    params = port.engine(cell, w, torch.device("cpu")).params
+    params = engine(cell, w, torch.device("cpu")).params
     cache = _mk_group_cache(cfg, cfg.num_hidden_layers, 1, len(ids), torch.device("cpu"),
                             False)
     with torch.inference_mode():

@@ -10,8 +10,8 @@ cell's entry over the cell's traffic at that rate (ramp, window, tail, as a
 benchmark run does) and prints the end-to-end metrics, the acceptance, the
 backlog's growth (the median latency of the window's last third over its
 first third) and the numbers compared. ``--control`` also judges the
-control in the program's place (the plain reference computed in float8
-puts the tokens first, ``check.control_tokens``) through the same
+control in the program's place (the family's plain reference computed in
+float8 puts the tokens first, ``check.control_tokens``) through the same
 ``judge`` and ``result_line``, and prints its ``correct`` and numbers
 under ``control``. The benchmark's own runs never run the control.
 """
@@ -46,8 +46,6 @@ def main(argv=None) -> int:
     bench.pin_caches()
     import torch
 
-    from loadbench.weights import make_weights
-
     if not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
         return 2
@@ -55,6 +53,7 @@ def main(argv=None) -> int:
     cell = catalog.cell(args.workload)
     rates = _floats(args.rates) or [float(cell.settings.get("rate_rps", 0.0))]
     epss = _floats(args.tail_eps) or [cell.tail_eps]
+    family = catalog.load_module("families", cell.family)
     kind = catalog.load_module("traffic/kinds", cell.traffic["kind"])
     entry = catalog.load_module("entries", cell.entry)
     sink = open(args.out, "a") if args.out else None
@@ -64,7 +63,8 @@ def main(argv=None) -> int:
             cell.settings["rate_rps"] = rate
             for seed in [int(x) for x in args.seeds.split(",")]:
                 t0 = time.perf_counter()
-                weights = make_weights(cell.config, cell.exit_layer, eps, seed, device)
+                weights = family.make_weights(cell.config, cell.exit_layer, eps, seed,
+                                              device)
                 plan = kind.schedule(cell.traffic, cell.settings, seed, args.seconds,
                                      int(cell.config["vocab_size"]))
                 torch.cuda.reset_peak_memory_stats(device)
