@@ -21,6 +21,12 @@ seeded from the request's seed when it is inserted, so a request's sampled
 stream depends only on its prompt, seed and budget, never on its slot or
 its neighbours. Greedy decoding draws nothing.
 
+A session over a mixture-of-experts model keeps each slot's route records
+on the device (``RouteSink``, models/llama.py): the expert ids every MoE
+layer chose for the token at each position, written by the pass that
+writes that token's KV, so a rejected draft's record is overwritten with
+its KV. A finished row's records come back at harvest (``records``).
+
 The JAX package's ``LAYERSKIP_PREFIX_NARROW`` opt-in (a second, narrower
 insert executable on prefix-cache hits) is not ported: eager PyTorch has no
 second executable to switch to.
@@ -47,7 +53,7 @@ from layerskip_tpu_torch.generation.sampling import SamplingConfig, draw, token_
 from layerskip_tpu_torch.generation.spec import _spec_round
 from layerskip_tpu_torch.generation.tree import _tree_round
 from layerskip_tpu_torch.models import llama
-from layerskip_tpu_torch.models.llama import LlamaParams
+from layerskip_tpu_torch.models.llama import NO_ROUTE, LlamaParams, RouteSink
 from layerskip_tpu_torch.ops.kv_cache import KVCache
 from layerskip_tpu_torch.ops.paged_kv import (
     PageAllocator,
@@ -94,12 +100,14 @@ def _spec_insert_rows(
     scfg: SamplingConfig,
     eos_ids: Tuple[int, ...],
     ngram: int = 0,
+    routes: Optional[RouteSink] = None,
 ) -> _SpecState:
     """Prefill new requests into the masked rows of a live speculation
     state. The other rows keep their KV, counters and buffers. Over a paged
     pool only the inserted rows run, through a copy of their table rows,
     and write into the shared pool in place. Over a contiguous cache the
-    batched prefill runs every row, the others at the trash position."""
+    batched prefill runs every row, the others at the trash position.
+    ``routes`` takes the prefill's expert ids where it writes KV."""
     b, p_bucket = ids.shape
     dev = ids.device
     rows = [r for r in range(b) if row_mask[r]]
@@ -128,13 +136,15 @@ def _spec_insert_rows(
         past = 0 if prefix_len is None else pl[idx]
         res = llama.forward_split(params, cfg, window_ids[idx], _rows_view(s.early, sub),
                                   _rows_view(s.full, sub), past, exit_layer,
-                                  last_pos=last[idx])
+                                  last_pos=last[idx],
+                                  routes=None if routes is None
+                                  else dataclasses.replace(routes, rows=idx))
         last_logits = res.logits[:, 0]  # [rows, V]
         early, full = s.early, s.full
     else:
         past = torch.where(m, pl, s.early.k.shape[2] - p_bucket)
         res = llama.forward_split(params, cfg, window_ids, s.early, s.full, past, exit_layer,
-                                  last_pos=last)
+                                  last_pos=last, routes=routes)
         last_logits = res.logits[idx, 0]  # [rows, V]
         early, full = res.early_cache, res.full_cache
     out_size = max_steps + w + 1
@@ -180,6 +190,7 @@ def _chunk_prefill_rows(
     *,
     exit_layer: int,
     prompt_bucket: int,
+    routes: Optional[RouteSink] = None,
 ) -> _SpecState:
     """KV-only prefill of one prompt chunk into the masked rows (contiguous
     KV): writes their KV at [off, off + C); other rows pass through the
@@ -196,7 +207,8 @@ def _chunk_prefill_rows(
     park = s.early.k.shape[2] - prompt_bucket
     past = torch.where(m, int(off), park)
     res = llama.forward_split(params, cfg, chunk_ids, s.early, s.full, past, exit_layer,
-                              last_pos=torch.zeros((b,), dtype=torch.long, device=dev))
+                              last_pos=torch.zeros((b,), dtype=torch.long, device=dev),
+                              routes=routes)
     return dataclasses.replace(s, early=res.early_cache, full=res.full_cache,
                                ctx=torch.where(m, park, s.ctx))
 
@@ -229,6 +241,15 @@ class ContinuousSession:
     and sharded sessions draft eagerly (``draft_graph`` None, ``graph``
     0). Insert and park update the KV pools and the page table in place,
     at the addresses the graph holds.
+
+    ``routes``: over a mixture-of-experts model (tree rounds excepted,
+    whose chains share positions) a ``RouteSink`` over a uint8 buffer [L,
+    slots, positions, k], ``NO_ROUTE`` where no pass wrote; an insert
+    clears its slots first. A step that finishes rows reads their records
+    for every position fed (the prompt and the served tokens but the last)
+    in one more read (``sync`` site ``harvest.routes``), and ``records``
+    maps each such row to ``{"routes": uint8 [L, positions, k]}`` until
+    it finishes again. Dense sessions keep no buffer and make no read.
 
     The contiguous cache has ``prompt_bucket`` extra trailing slots, the
     trash zone parked rows write into. Under ``paged`` (pool_pages,
@@ -267,6 +288,7 @@ class ContinuousSession:
             raise ValueError("prefix_cache requires paged KV")
         with self.engine.inference():
             self.state = self._blank_state()
+            self.routes = self._route_sink()
             # the draft passes of each round replay from one CUDA graph,
             # captured here over the blank state, where the session allows
             self.draft_graph = None if eager_reason(self) else DraftGraph(self)
@@ -276,6 +298,8 @@ class ContinuousSession:
         self._out_len = np.zeros(batch, np.int64)
         self._steps = np.full(batch, gen_cfg.max_steps, np.int64)
         self._done = np.ones(batch, bool)
+        self._prompt_len = np.ones(batch, np.int64)
+        self.records = {}  # row -> what the program kept for its last request
         # chunked prefill staging: queued chunk passes and the finalize args,
         # advanced one chunk per step()
         self._chunk_queue = []
@@ -318,6 +342,23 @@ class ContinuousSession:
             generator=[_row_generator(dev, 0) for _ in range(b)],
         )
 
+    def _route_sink(self) -> Optional[RouteSink]:
+        cfg = self.engine.cfg
+        if not cfg.is_moe or self._tree_width > 1:
+            return None
+        # every slot a KV write can reach: the capacity and, over a
+        # contiguous cache, the trash zone past it
+        shape = (cfg.num_hidden_layers, self.batch, self._capacity + self.prompt_bucket,
+                 cfg.num_experts_per_tok)
+        return RouteSink(torch.full(shape, NO_ROUTE, dtype=torch.uint8,
+                                    device=self.engine.device))
+
+    def _clear_routes(self, rows) -> None:
+        if self.routes is not None:
+            with self.engine.inference():
+                for r in rows:
+                    self.routes.buf[:, r].fill_(NO_ROUTE)
+
     def _insert_rows(self, row_mask, ids, true_len, seeds, steps, new_table=None,
                      prefix_len=None, suffix_ids=None) -> None:
         g = self.gen_cfg
@@ -325,7 +366,8 @@ class ContinuousSession:
             self.engine.params, self.engine.cfg, self.state, row_mask, ids, true_len,
             seeds, steps, new_table, prefix_len, suffix_ids, max_steps=g.max_steps,
             exit_layer=g.exit_layer, num_speculations=g.num_speculations,
-            scfg=self._scfg, eos_ids=self.eos, ngram=int(g.no_repeat_ngram_size or 0))
+            scfg=self._scfg, eos_ids=self.eos, ngram=int(g.no_repeat_ngram_size or 0),
+            routes=self.routes)
 
     def _multi_round(self, k: int) -> int:
         """Up to ``k`` rounds; stops as soon as every row is done. Returns the
@@ -351,7 +393,7 @@ class ContinuousSession:
                         draft_exit_prob=float(g.draft_exit_prob or 0.0),
                         pld_ngram=self._pld_ngram,
                         hybrid=g.generation_strategy == "hybrid", draft_params=self._draft,
-                        draft_graph=self.draft_graph, **common)[0]
+                        draft_graph=self.draft_graph, routes=self.routes, **common)[0]
             ran += 1
         return ran
 
@@ -439,6 +481,7 @@ class ContinuousSession:
             # no prefix hit: every inserted row starts at 0 (K1 may run)
             paged_args = (self._dev(table),
                           self._dev(prefix_vec) if prefix_vec.any() else None)
+        self._clear_routes(rows)
         with self.engine.inference():
             self._insert_rows(mask, self._dev(ids), self._dev(lens), seed_vec.tolist(),
                               self._dev(steps_vec), *paged_args)
@@ -447,10 +490,11 @@ class ContinuousSession:
             # begin at prompt_len): publish them
             for r in rows:
                 self.prefix_cache.put(prompts_by_row[r], slot_pages[r])
-        self._activate(mask, np.clip(steps_vec, 1, self.gen_cfg.max_steps))
+        self._activate(mask, np.clip(steps_vec, 1, self.gen_cfg.max_steps), lens)
 
-    def _activate(self, mask, clipped) -> None:
+    def _activate(self, mask, clipped, lens) -> None:
         # fresh rows start at out_len 1 (the prefill commits one token)
+        self._prompt_len[mask] = lens[mask]
         self.active |= mask
         self._out_len[mask] = 1
         self._steps[mask] = clipped[mask]
@@ -491,6 +535,7 @@ class ContinuousSession:
         last_tok = np.take_along_axis(ids, np.maximum(lens - 1, 0)[:, None], axis=1)
         self._chunk_finalize = (mask, ids, lens, seed_vec, steps_vec, last_tok)
         self._pending |= mask
+        self._clear_routes(rows)
 
     def _advance_chunked_insert(self) -> None:
         """Run one queued chunk pass; finalize when the queue drains."""
@@ -498,7 +543,8 @@ class ContinuousSession:
             mask, win, off = self._chunk_queue.pop(0)
             self.state = _chunk_prefill_rows(
                 self.engine.params, self.engine.cfg, self.state, mask, win, off,
-                exit_layer=self.gen_cfg.exit_layer, prompt_bucket=self.prompt_bucket)
+                exit_layer=self.gen_cfg.exit_layer, prompt_bucket=self.prompt_bucket,
+                routes=self.routes)
         if self._chunk_queue or self._chunk_finalize is None:
             return
         mask, ids, lens, seed_vec, steps_vec, last_tok = self._chunk_finalize
@@ -511,7 +557,7 @@ class ContinuousSession:
                           self._dev(steps_vec), None, (true_len - 1).clamp_min(0),
                           self._dev(last_tok))
         self._pending &= ~mask
-        self._activate(mask, np.clip(steps_vec, 1, self.gen_cfg.max_steps))
+        self._activate(mask, np.clip(steps_vec, 1, self.gen_cfg.max_steps), lens)
 
     def has_pending_prefill(self) -> bool:
         """True while a chunked insert is staged but not yet finalized."""
@@ -557,15 +603,30 @@ class ContinuousSession:
                 matches = s.matches.cpu().numpy()
             with span("sync", site="harvest.drafts"):
                 drafts = s.drafts.cpu().numpy()
-        finished = []
-        for r in newly:
-            toks = outs[r][:min(int(self._out_len[r]), int(self._steps[r]))].tolist()
-            for e in self.eos:
-                if e in toks:
-                    toks = toks[:toks.index(e)]
-            finished.append((r, toks, float(matches[r]) / max(int(drafts[r]), 1)))
-            self.active[r] = False
+            finished = []
+            for r in newly:
+                toks = outs[r][:min(int(self._out_len[r]), int(self._steps[r]))].tolist()
+                for e in self.eos:
+                    if e in toks:
+                        toks = toks[:toks.index(e)]
+                finished.append((r, toks, float(matches[r]) / max(int(drafts[r]), 1)))
+                self.active[r] = False
+            if self.routes is not None:
+                self._harvest_routes(finished)
         return finished
+
+    def _harvest_routes(self, finished) -> None:
+        """Read the route records of the positions each finished row fed
+        (its prompt and served tokens but the last) in one read."""
+        buf = self.routes.buf
+        fed = [max(int(self._prompt_len[r]) + len(toks) - 1, 0) for r, toks, _ in finished]
+        parts = [buf[:, r, :n].reshape(-1) for (r, _, _), n in zip(finished, fed)]
+        with span("sync", site="harvest.routes"):
+            flat = torch.cat(parts).cpu().numpy()
+        shape = (buf.shape[0], -1, buf.shape[-1])
+        for (r, _, _), part in zip(finished, np.split(flat, np.cumsum(
+                [p.numel() for p in parts])[:-1])):
+            self.records[r] = {"routes": part.reshape(shape)}
 
     def has_active(self) -> bool:
         return bool(self.active.any())

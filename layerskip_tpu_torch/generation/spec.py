@@ -58,7 +58,7 @@ from layerskip_tpu_torch.generation.sampling import (
 )
 from layerskip_tpu_torch.generation.tree import _tree_round
 from layerskip_tpu_torch.models import llama
-from layerskip_tpu_torch.models.llama import LlamaParams
+from layerskip_tpu_torch.models.llama import LlamaParams, RouteSink
 from layerskip_tpu_torch.ops.kv_cache import KVCache
 from layerskip_tpu_torch.utils.profiling import span
 
@@ -144,6 +144,7 @@ def early_exit_draft(
     scfg: SamplingConfig,
     generator: Generators = None,
     ngram: int = 0,
+    routes: Optional[RouteSink] = None,
 ):
     """The W early-exit draft passes of a round, each through layers
     [0, E) and the shared head: (drafts [B, W], their distributions (W of
@@ -154,7 +155,7 @@ def early_exit_draft(
     d_toks, d_probs, exit_h = [], [], []
     tok = next_tok
     for i in range(num_speculations):
-        r = llama.forward_early(params, cfg, tok, early, ctx + i, exit_layer)
+        r = llama.forward_early(params, cfg, tok, early, ctx + i, exit_layer, routes)
         logits = _ban(r.logits[:, -1], hist, hist_len0 + i, ngram, cfg.vocab_size)
         probs = token_distribution(logits, scfg)  # [B, V]
         d_tok = draw(probs, generator, scfg)  # [B]
@@ -279,6 +280,7 @@ def _spec_round(
     hybrid: bool = False,
     draft_params: Optional[LlamaParams] = None,
     draft_graph=None,
+    routes: Optional[RouteSink] = None,
 ) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
     """One draft+verify round: each active row commits its accepted drafts
     plus one extra token. Returns (the new state, the round's window [B, W+1]
@@ -305,7 +307,12 @@ def _spec_round(
     ``draft_graph`` (generation/draft_graph.py ``DraftGraph``, built by a
     continuous session for greedy early-exit drafting with the base
     weights) replays the W draft passes from one CUDA graph in place of
-    launching them; every other setting drafts eagerly."""
+    launching them; every other setting drafts eagerly.
+
+    ``routes`` (a continuous session's route records) takes the experts
+    each MoE layer chose where the round writes KV: the draft passes at
+    layers [0, E), the verify at [E, L) and the last draft's [0, E) (a
+    full-stack verify at every layer)."""
     if draft_params is not None and (pld_ngram > 0 or hybrid):
         raise ValueError("draft_params applies only to early-exit drafting, not to "
                          "prompt-lookup or hybrid drafts")
@@ -325,7 +332,7 @@ def _spec_round(
     def full_verify(drafts):
         """The window [next_tok, drafts] through every layer from ``s.ctx``."""
         return llama.forward_split(params, cfg, torch.cat([s.next_tok, drafts], dim=1),
-                                   s.early, s.full, s.ctx, e)
+                                   s.early, s.full, s.ctx, e, routes=routes)
 
     def pld_draft_verify(proposals):
         """Copied drafts, one-hot, verified through every layer."""
@@ -339,7 +346,7 @@ def _spec_round(
         if draft_params is None:
             vres = llama.forward_remainder(
                 params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
-                draft_len=s.ctx + w, full_len=s.ctx, exit_layer=e,
+                draft_len=s.ctx + w, full_len=s.ctx, exit_layer=e, routes=routes,
             )
         else:
             vres = full_verify(drafts)
@@ -350,7 +357,7 @@ def _spec_round(
         return early_exit_draft(
             params if draft_params is None else draft_params, cfg, s.early, s.next_tok, s.ctx,
             s.hist, hist_len0, exit_layer=e, num_speculations=w, scfg=scfg,
-            generator=generator, ngram=ngram)
+            generator=generator, ngram=ngram, routes=routes)
 
     def model_draft_verify():
         return model_verify(*model_draft())
@@ -375,7 +382,7 @@ def _spec_round(
         rows = drafting.tolist()  # one host read a draft step
         i = 0
         while i < w and any(rows):
-            r = llama.forward_early(dparams, cfg, tok, early, s.ctx + i, e)
+            r = llama.forward_early(dparams, cfg, tok, early, s.ctx + i, e, routes)
             logits = ban(r.logits[:, -1], hist, hist_len0 + i)
             probs = token_distribution(logits, scfg)  # [B, V]
             d_tok = draw(probs, generator, scfg, rows=rows)  # [B]
@@ -402,12 +409,12 @@ def _spec_round(
             return drafts, p_draft, hist, w_dyn, full_verify(drafts)
         # the stitched window per row: the last draft's exit hidden goes at
         # position w_dyn, zeros past it (position j's logits see only < j)
-        r_last = llama.forward_early(params, cfg, tok, early, s.ctx + w_dyn, e)
+        r_last = llama.forward_early(params, cfg, tok, early, s.ctx + w_dyn, e, routes)
         win_h = torch.cat([exit_h, torch.zeros_like(exit_h[:, :1])], dim=1)  # [B, W+1, D]
         sel = torch.arange(w + 1, device=dev)[None, :, None] == w_dyn[:, None, None]
         win_h = torch.where(sel, r_last.hidden.to(win_h.dtype), win_h)
         full_h, kf, vf = llama.run_layers(cfg, params.layers, win_h, s.full.k, s.full.v,
-                                          s.ctx, layer_offset=e)
+                                          s.ctx, layer_offset=e, routes=routes)
         vres = llama.RemainderResult(logits=llama.lm_logits(params, cfg, full_h),
                                      early_cache=r_last.cache,
                                      full_cache=KVCache(k=kf, v=vf))

@@ -18,6 +18,11 @@ norms, softcaps and alternating windows, Gemma-3's local RoPE base on its
 sliding layers, and the Mixtral/Qwen3-MoE expert MLP (ops/moe.py). Phi-3 is
 Llama once its fused projections are split (models/params.py).
 
+A pass given a ``RouteSink`` (``routes``) puts the experts each MoE layer
+chose for a token where the pass writes that token's KV: the continuous
+session's route records (generation/continuous.py). Every other caller
+passes none.
+
 Under a sharded context (parallel/collectives.py) the weights are this
 rank's Megatron slices (parallel/sharding.py): the local head counts come
 from the local shapes, ``wo`` and ``w_down`` give partial sums that one
@@ -29,6 +34,7 @@ logits of every vocab slice, so every rank holds the same full logits.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -76,6 +82,34 @@ class LayerParams:
     k_norm: Optional[torch.Tensor] = None  # [L, Dh]
 
 
+NO_ROUTE = 255  # a route record no pass has written (uint8 ids: at most 255 experts)
+
+
+@dataclasses.dataclass
+class RouteSink:
+    """Where a pass's MoE layers put each token's chosen expert ids: ``buf``
+    [L, slots, positions, k] (uint8), batch row b of the pass at slot
+    ``rows[b]`` (slot b when None), each token at the position where the
+    pass writes its KV (clamped to the buffer)."""
+
+    buf: torch.Tensor
+    rows: Optional[torch.Tensor] = None  # [B] long
+
+    def flat_index(self, q_positions: torch.Tensor) -> torch.Tensor:
+        """[B*T] flat (slot, position) indices of one layer's [slots *
+        positions, k] view, for a pass at ``q_positions`` [B, T]."""
+        b = q_positions.shape[0]
+        n_pos = self.buf.shape[2]
+        rows = (self.rows if self.rows is not None
+                else torch.arange(b, device=q_positions.device))
+        return (rows[:, None] * n_pos + q_positions.clamp(max=n_pos - 1)).reshape(-1)
+
+    def put(self, index: torch.Tensor, layer: int, ids: torch.Tensor) -> None:
+        """Layer ``layer``'s ids [B*T, k] at ``index`` (``flat_index``)."""
+        self.buf[layer].view(-1, self.buf.shape[-1]).index_copy_(
+            0, index, ids.to(self.buf.dtype))
+
+
 @dataclasses.dataclass
 class LlamaParams:
     embed: torch.Tensor  # [V, D]
@@ -121,6 +155,8 @@ def _one_layer(
     past_scalar: Optional[int],
     tree_meta=None,  # tree chains (ops/attention.gqa_attention)
     window: Optional[int] = None,  # this layer's window (0 = global)
+    routes: Optional[RouteSink] = None,
+    route_index: Optional[torch.Tensor] = None,  # routes.flat_index of the pass
 ) -> torch.Tensor:
     b, t, _ = h.shape
     dh = cfg.head_dim  # the head counts are this rank's (the weights' local shapes)
@@ -157,9 +193,11 @@ def _one_layer(
         attn_out = rms_norm(attn_out, layers.post_attn_norm[i], eps, off)
     x, h = rms_norm_residual(attn_out, h, layers.mlp_norm[i], eps, off)
     if layers.w_router is not None:
+        routes_out = (None if route_index is None
+                      else functools.partial(routes.put, route_index, i))
         mlp_out, _ = moe_mlp(x, layers.w_router[i], layers.w_gate[i], layers.w_up[i],
                              layers.w_down[i], cfg.num_experts_per_tok,
-                             norm_topk=cfg.norm_topk_prob)
+                             norm_topk=cfg.norm_topk_prob, routes_out=routes_out)
     else:
         gated = _act(cfg, apply_weight(x, layers.w_gate[i])) * apply_weight(x, layers.w_up[i])
         mlp_out = apply_weight(gated, layers.w_down[i])
@@ -180,6 +218,7 @@ def run_layers(
     q_positions: Optional[torch.Tensor] = None,  # override: [B, T] or [T]
     write_pos: Union[None, int, torch.Tensor] = None,  # override: KV write slot(s)
     tree_meta=None,  # tree chains (ops/attention.gqa_attention)
+    routes: Optional[RouteSink] = None,  # where MoE layers put their expert ids
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a contiguous layer range; returns (h, k, v) with k/v updated in
     place. An int ``past_len`` gives every row the same contiguous positions
@@ -190,6 +229,9 @@ def run_layers(
     slots (tree speculation writes several same-position chain tokens to
     distinct interleaved slots, generation/tree.py); with ``q_positions``
     the positions are never taken as one shared past, so K1 never runs.
+
+    ``routes`` (MoE layers only) takes each token's expert ids at its query
+    position, where the KV of a pass without ``write_pos`` goes.
 
     Gemma-2/3 choose each layer's window on the host from
     ``cfg.sliding_layer_flags`` (a Python int, 0 = global, for the kernels'
@@ -210,6 +252,11 @@ def run_layers(
         past_len = past_len.long()
         q_positions = past_len[:, None] + steps
     kv_write_pos = past_len if write_pos is None else write_pos
+    route_index = None
+    if routes is not None and layers.w_router is not None:
+        if write_pos is not None:
+            raise ValueError("route records follow the query positions: no write_pos")
+        route_index = routes.flat_index(q_positions)
     cos, sin = rope_cos_sin(q_positions, rope_inv_freq(cfg, h.device))
     flags = cfg.sliding_layer_flags
     local = None
@@ -227,7 +274,7 @@ def run_layers(
         elif local is not None:  # every layer slides: the local base throughout
             cs = local
         h = _one_layer(cfg, layers, i, h, k[j], v[j], *cs, kv_write_pos, q_positions,
-                       past_scalar, tree_meta, window)
+                       past_scalar, tree_meta, window, routes, route_index)
     return h, k, v
 
 
@@ -271,12 +318,13 @@ def forward(params: LlamaParams, cfg: ModelConfig, ids: torch.Tensor,
 
 
 def forward_early(params: LlamaParams, cfg: ModelConfig, ids: torch.Tensor,
-                  early_cache: KVCache, draft_len, exit_layer: int) -> ForwardResult:
+                  early_cache: KVCache, draft_len, exit_layer: int,
+                  routes: Optional[RouteSink] = None) -> ForwardResult:
     """Draft pass: layers [0, exit_layer) + shared norm/head, over the early
     group's cache only."""
     h = embed_tokens(params, ids, cfg)
     h, ke, ve = run_layers(cfg, params.layers, h, early_cache.k, early_cache.v,
-                           draft_len, layer_offset=0)
+                           draft_len, layer_offset=0, routes=routes)
     return ForwardResult(logits=lm_logits(params, cfg, h),
                          cache=KVCache(k=ke, v=ve), hidden=h)
 
@@ -291,6 +339,7 @@ def forward_remainder(
     draft_len,  # early-group past length (== full_len + W)
     full_len,  # full-group past length
     exit_layer: int,
+    routes: Optional[RouteSink] = None,
 ) -> RemainderResult:
     """Verification pass: early layers run the last draft token at
     ``draft_len``; full layers run the stitched window
@@ -298,10 +347,11 @@ def forward_remainder(
     the window; both groups then hold ``full_len + W + 1`` valid positions."""
     h1 = embed_tokens(params, last_draft_token, cfg)
     h1, ke, ve = run_layers(cfg, params.layers, h1, early_cache.k,
-                            early_cache.v, draft_len, layer_offset=0)
+                            early_cache.v, draft_len, layer_offset=0, routes=routes)
     full_h = torch.cat([exit_hidden, h1], dim=1)
     full_h, kf, vf = run_layers(cfg, params.layers, full_h, full_cache.k,
-                                full_cache.v, full_len, layer_offset=exit_layer)
+                                full_cache.v, full_len, layer_offset=exit_layer,
+                                routes=routes)
     return RemainderResult(logits=lm_logits(params, cfg, full_h),
                            early_cache=KVCache(k=ke, v=ve),
                            full_cache=KVCache(k=kf, v=vf))
@@ -317,13 +367,14 @@ def forward_split(
     exit_layer: int,
     last_pos: Optional[torch.Tensor] = None,  # [B]: logits only at this
     # position per row, returned as [B, 1, V]
+    routes: Optional[RouteSink] = None,
 ) -> RemainderResult:
     """Full-model forward over the split early/full caches (engine prefill)."""
     h = embed_tokens(params, ids, cfg)
     h, ke, ve = run_layers(cfg, params.layers, h, early_cache.k, early_cache.v,
-                           past_len, layer_offset=0)
+                           past_len, layer_offset=0, routes=routes)
     h, kf, vf = run_layers(cfg, params.layers, h, full_cache.k, full_cache.v,
-                           past_len, layer_offset=exit_layer)
+                           past_len, layer_offset=exit_layer, routes=routes)
     if last_pos is not None:
         rows = torch.arange(h.shape[0], device=h.device)
         h = h[rows, last_pos.long()][:, None]  # [B, 1, D]

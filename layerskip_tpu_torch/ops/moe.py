@@ -34,17 +34,28 @@ gradients are summed over tp, while the router's own (replicated) path is
 not. With the tokens split over ranks (training's dp and fsdp), the
 load-balancing term is the global one: the per-expert sums and the token
 count are all-reduced before the product.
+
+Each call is a ``moe`` span (``utils/profiling.py``) with its ``path`` and
+``tokens``. While a ``torch.profiler`` records, each call appends its
+shape and a device copy of its per-expert assignment counts to
+``profiling.RECORDS.moe`` (the counts are read after the stretch, so the
+experts a call hit are known without a read in the timed path). A caller
+that keeps each token's experts (a continuous session's route records,
+generation/continuous.py) passes ``routes_out``, which receives the ids.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 import torch.nn.functional as F
 
 from layerskip_tpu_torch.ops.linear import QuantTensor, _qdot
 from layerskip_tpu_torch.parallel.collectives import all_reduce, axis, copy_to_group
+from layerskip_tpu_torch.utils import profiling
+from layerskip_tpu_torch.utils.profiling import span
 
 # the JAX package's switch from the dense to the grouped path (measured there)
 _GROUPED_MIN_TOKENS = 2048
@@ -189,28 +200,44 @@ def _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
 
 def moe_mlp(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
             num_experts_per_tok: int, norm_topk: bool = True,
-            aux_axes: tuple = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+            aux_axes: tuple = (),
+            routes_out: Optional[Callable[[torch.Tensor], None]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward of ``x`` [B, T, D] with stacked experts ``w_gate``/
     ``w_up`` [E, D, F] and ``w_down`` [E, F, D] (dense or QuantTensor):
     (output [B, T, D], load-balancing term). The path is the JAX package's
     rule: ``few`` when n*k < E, ``grouped`` from 2048 tokens, else
     ``dense``. Under ep the stacks are this rank's experts and the output
-    is summed over ep here. ``aux_axes``: ``route``'s."""
+    is summed over ep here. ``aux_axes``: ``route``'s. ``routes_out``, when
+    given, receives the chosen expert ids [B*T, k] (on the device)."""
     b, t, d = x.shape
     n_experts = w_router.shape[-1]
     n, k = b * t, num_experts_per_tok
-    x2 = x.reshape(n, d)
-    topv, topi, aux = route(x2, w_router, k, norm_topk, aux_axes)
-    tp = axis("tp")
-    x2, topv = copy_to_group(x2, tp), copy_to_group(topv, tp)
-    ep = axis("ep")
-    e0 = None if ep is None else ep.rank * w_gate.shape[0]
     if n * k < n_experts:
-        path, out = "few", _moe_few(x2, topv, topi, w_gate, w_up, w_down, k, e0)
+        path = "few"
     elif n >= _GROUPED_MIN_TOKENS:
-        path, out = "grouped", _moe_grouped(x2, topv, topi, w_gate, w_up, w_down,
-                                            n_experts, k, e0)
+        path = "grouped"
     else:
-        path, out = "dense", _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts, e0)
-    PATH_CALLS[path] += 1
-    return all_reduce(out, ep).reshape(b, t, d).to(x.dtype), aux
+        path = "dense"
+    with span("moe", path=path, tokens=n):
+        x2 = x.reshape(n, d)
+        topv, topi, aux = route(x2, w_router, k, norm_topk, aux_axes)
+        if routes_out is not None:
+            routes_out(topi)
+        on = _autograd_profiler._is_profiler_enabled
+        if on or profiling.RECORDS.collecting:
+            profiling.RECORDS.add("moe", (
+                n, k, n_experts, d, w_gate.shape[-1], path, x.element_size(),
+                torch.bincount(topi.reshape(-1), minlength=n_experts)), kept=on)
+        tp = axis("tp")
+        x2, topv = copy_to_group(x2, tp), copy_to_group(topv, tp)
+        ep = axis("ep")
+        e0 = None if ep is None else ep.rank * w_gate.shape[0]
+        if path == "few":
+            out = _moe_few(x2, topv, topi, w_gate, w_up, w_down, k, e0)
+        elif path == "grouped":
+            out = _moe_grouped(x2, topv, topi, w_gate, w_up, w_down, n_experts, k, e0)
+        else:
+            out = _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts, e0)
+        PATH_CALLS[path] += 1
+        return all_reduce(out, ep).reshape(b, t, d).to(x.dtype), aux

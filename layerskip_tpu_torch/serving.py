@@ -8,7 +8,8 @@
   * ``ContinuousBatchScheduler`` runs a ``ContinuousSession``: a finished
     row is refilled from the queue while the others keep decoding. With a
     paged pool, a request the pool cannot hold yet waits (backpressure);
-    one the pool can never hold fails.
+    one the pool can never hold fails. Over a mixture of experts each
+    future carries the request's route records as ``future.records``.
   * ``serve`` / ``make_server``: a stdlib HTTP server with POST /generate
     ({"prompt": str, ...overrides}) and GET /healthz.
   * ``main``: the command line, ``python -m layerskip_tpu_torch.serving
@@ -82,9 +83,12 @@ class _Request:
         self.queue_span = detached("queue", parent=self.span, rids=(self.rid,))
 
     def resolve(self, tokens=None, exc: Optional[BaseException] = None,
-                latency: Optional["_LatencyRecorder"] = None) -> bool:
+                latency: Optional["_LatencyRecorder"] = None,
+                records: Optional[dict] = None) -> bool:
         """Close the spans and resolve the future with ``tokens`` or ``exc``;
-        False (nothing done) when it was resolved already."""
+        False (nothing done) when it was resolved already. ``records``, what
+        the session kept for the request (a mixture of experts' routes),
+        goes on the future as ``future.records`` before its result."""
         if self.future.done():
             return False
         self.queue_span.end()
@@ -95,6 +99,8 @@ class _Request:
         self.span.end(tokens=len(tokens))
         if latency is not None:
             latency.record(self)
+        if records is not None:
+            self.future.records = records
         self.future.set_result(tokens)
         return True
 
@@ -402,7 +408,8 @@ class ContinuousBatchScheduler:
         self.stats["rounds"] += 1
         for row, tokens, acceptance in finished:
             req = self._slot_req.pop(row, None)
-            if req is not None and req.resolve(tokens, latency=self.latency):
+            records = self.session.records.pop(row, None)
+            if req is not None and req.resolve(tokens, latency=self.latency, records=records):
                 self.stats["completed"] += 1
                 self.stats["acceptance_sum"] += acceptance
 

@@ -16,8 +16,9 @@
   * ``ENABLED`` — set it False and ``span``/``detached`` return one shared
     no-op object: no allocation, no clock read;
   * ``RECORDS`` — the facts of each K1 and K2 call (``ops/attention.py``)
-    while a ``torch.profiler`` records, so a device trace's kernel times can
-    be put beside the least time the calls could take;
+    and each MoE layer call (``ops/moe.py``) while a ``torch.profiler``
+    records, so a device trace's kernel times can be put beside the least
+    time the calls could take;
   * ``trace(logdir)`` — ``torch.profiler`` over the block (CPU, and CUDA
     when a card is present) into ``logdir/trace.json``, the program's
     spans on their own track shifted to the profiler's clock, and the
@@ -43,7 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 ENABLED = True
 CAPACITY = 65536  # spans kept in the ring
-RECORD_CAPACITY = 65536  # K1 or K2 records kept per profiled stretch
+RECORD_CAPACITY = 65536  # K1, K2 or MoE records kept per profiled stretch
 OUTSIDE = "(outside any span)"
 
 # perf_counter_ns + PROFILER_OFFSET_NS is the same instant on the profiler's
@@ -206,11 +207,13 @@ def detached(name: str, parent=None, rids: Sequence[int] = (), **attrs):
 
 
 class KernelRecords:
-    """What a device trace needs to put each K1 and K2 call beside its
-    roofline, appended by ``ops/attention.py`` while a profiler records:
-    K1 ``(q.shape, keys, Hkv, past, window, element size)``, K2 ``(q.shape,
-    the positions tensor (kept, never read there), Hkv, slots a row's table
-    maps, window, element size)``.
+    """What a device trace needs to put each K1, K2 and MoE call beside its
+    roofline, appended by ``ops/attention.py`` and ``ops/moe.py`` while a
+    profiler records: K1 ``(q.shape, keys, Hkv, past, window, element
+    size)``, K2 ``(q.shape, the positions tensor (kept, never read there),
+    Hkv, slots a row's table maps, window, element size)``, MoE ``(tokens,
+    k, E, D, F, path, element size, the per-expert assignment counts [E] on
+    the device (made only then, never read there))``.
 
     A CUDA graph's calls are launched by its replays, not by the entry
     points: ``calls_of`` collects the calls a thread makes while the graph's
@@ -220,6 +223,7 @@ class KernelRecords:
         self.capacity = int(capacity)
         self.k1: list = []
         self.k2: list = []
+        self.moe: list = []
         self.dropped = 0
         self.collecting = 0  # threads inside ``calls_of``
         self._local = threading.local()
@@ -234,7 +238,7 @@ class KernelRecords:
             return
         if not kept:
             return
-        rows = self.k1 if kind == "k1" else self.k2
+        rows = getattr(self, kind)
         if len(rows) < self.capacity:
             rows.append(record)
         else:
@@ -242,7 +246,7 @@ class KernelRecords:
 
     @contextlib.contextmanager
     def calls_of(self):
-        """The ``(kind, record)`` of every K1 and K2 call this thread makes
+        """The ``(kind, record)`` of every recorded call this thread makes
         inside the block, in order, kept apart from the records."""
         calls = self._local.calls = []
         with self._lock:
@@ -255,7 +259,7 @@ class KernelRecords:
                 self.collecting -= 1
 
     def clear(self) -> None:
-        self.k1, self.k2, self.dropped = [], [], 0
+        self.k1, self.k2, self.moe, self.dropped = [], [], [], 0
 
 
 RECORDS = KernelRecords()
@@ -370,8 +374,8 @@ def _add_spans_to_chrome_trace(path: str, spans: Sequence[Span]) -> None:
 def trace(logdir: str):
     """Profile everything inside the block into ``logdir/trace.json`` with
     the program's spans of the block merged in, and write the device's idle
-    seconds by innermost span to ``logdir/idle_by_span.json``. The K1/K2
-    records (``RECORDS``) hold this block's calls."""
+    seconds by innermost span to ``logdir/idle_by_span.json``. The K1, K2
+    and MoE records (``RECORDS``) hold this block's calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
