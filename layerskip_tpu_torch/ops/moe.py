@@ -11,7 +11,9 @@ of which drops a token:
     multiplies them: only the routed experts' weights are read. Decode and
     draft steps, where ``n * k < E``;
   * ``dense``: every expert's MLP for every token, combined with the
-    (mostly zero) routing weights. Verify windows and short prompts;
+    (mostly zero) routing weights, the expert stacks read as they lie (a
+    batched product over the experts, never a copy of a stack). Verify
+    windows, draft passes at batch and short prompts;
   * ``grouped``: assignments sorted by expert, one product per expert's
     contiguous segment (k/E of the dense path's products). Prefills of
     2048 tokens and more.
@@ -156,10 +158,14 @@ def _moe_dense(x2, topv, topi, w_gate, w_up, w_down, n_experts: int,
     cw = cw.scatter_add(1, topi, topv.float()).to(dt)  # [N, E]
     if e0 is not None:
         cw = cw[:, e0:e0 + w_gate.shape[0]]
-    g = torch.einsum("nd,edf->nef", x2, _dense(w_gate, dt))
-    u = torch.einsum("nd,edf->nef", x2, _dense(w_up, dt))
-    a = F.silu(g) * u * cw[:, :, None]
-    return torch.einsum("nef,efd->nd", a, _dense(w_down, dt))
+    w_gate, w_up, w_down = (_dense(w, dt) for w in (w_gate, w_up, w_down))
+    # a batched product over the experts reads each [D, F] stack as it lies
+    # (the einsum "nd,edf->nef" would permute the stack to [D, E, F], a copy
+    # of it every call); the down product keeps one fp32 sum over all E*F,
+    # and [E, F, D] reshapes to [E*F, D] without a copy
+    xe = x2.expand(w_gate.shape[0], *x2.shape)  # [E, N, D]
+    a = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up) * cw.T[:, :, None]
+    return a.transpose(0, 1).reshape(x2.shape[0], -1) @ w_down.reshape(-1, w_down.shape[-1])
 
 
 def _per_expert(w):

@@ -94,12 +94,12 @@ def test_route_equals_jax(norm_topk):
 
 @pytest.mark.parametrize("bits", [0, 8, 4], ids=["dense", "int8", "int4"])
 @pytest.mark.parametrize("impl", ["few", "dense", "grouped"])
-@pytest.mark.parametrize("shape", [(3, 40), (1, 1)])
+@pytest.mark.parametrize("shape", [(3, 40), (1, 1), (1, 37)])
 def test_each_path_equals_jax(shape, impl, bits):
     """Each path, called directly, on dense, int8 and int4 experts: the
     output and the load-balancing term equal the JAX package's same path
     (forced by its environment switch). (1, 1) is the decode shape, (3, 40)
-    a short prompt."""
+    a short prompt, (1, 37) a token count that is no multiple of 8."""
     jw, tw = _weights(bits)
     x = _x(shape)
     jout, jaux = _jax_moe(x, jw, impl)
@@ -112,6 +112,41 @@ def test_each_path_equals_jax(shape, impl, bits):
     assert tout.dtype == torch.float32
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **PATH_TOL)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+
+
+@pytest.mark.parametrize("split", ["whole", "ep", "tp"])
+def test_dense_path_copies_no_expert_stack(split):
+    """The ``dense`` path reads the bf16 expert stacks as they lie: no
+    ``copy_``, ``clone`` or ``contiguous`` in the call has an input as large
+    as a stack, for the whole stack, an ep rank's half of the experts
+    (``e0``) and a tp rank's half of F (contiguous, as ``shard_params``
+    cuts it). Tokens fewer than D keep the broadcast tokens [E, N, D] and
+    the activations [N, E*F] under a stack's size."""
+    d, f, n = 64, 96, 40
+    g = torch.Generator().manual_seed(0)
+    mk = lambda *s: torch.randn(s, generator=g).bfloat16()  # noqa: E731
+    w_gate, w_up, w_down = mk(E, d, f), mk(E, d, f), mk(E, f, d)
+    e0 = None
+    if split == "ep":
+        e0 = E // 2
+        w_gate, w_up, w_down = w_gate[e0:], w_up[e0:], w_down[e0:]
+    elif split == "tp":
+        w_gate, w_up = w_gate[..., :f // 2].contiguous(), w_up[..., :f // 2].contiguous()
+        w_down = w_down[:, :f // 2].contiguous()
+    x2 = mk(n, d)
+    topv, topi, _ = tmoe.route(x2, mk(d, E), K)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        out = tmoe._moe_dense(x2, topv, topi, w_gate, w_up, w_down, E, e0)
+    assert out.shape == (n, d) and out.dtype == torch.bfloat16
+    events = prof.events()
+    assert any(ev.name in ("aten::bmm", "aten::mm") for ev in events)
+    stack = w_gate.numel()
+    copies = [(ev.name, ev.input_shapes) for ev in events
+              if ev.name in ("aten::copy_", "aten::clone", "aten::contiguous")
+              and any(isinstance(s, list) and all(isinstance(i, int) for i in s)
+                      and np.prod(s, dtype=np.int64) >= stack for s in ev.input_shapes)]
+    assert not copies, copies
 
 
 @pytest.mark.parametrize("shape,path", [((1, 1), "few"), ((3, 40), "dense"),
