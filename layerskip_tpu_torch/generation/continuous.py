@@ -35,13 +35,14 @@ second executable to switch to.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.generation.core import (
+    RoundPlan,
     _SpecState,
     _is_eos,
     _mk_group_cache,
@@ -49,7 +50,7 @@ from layerskip_tpu_torch.generation.core import (
 )
 from layerskip_tpu_torch.generation.draft_graph import DraftGraph, eager_reason
 from layerskip_tpu_torch.generation.processors import apply_ban, no_repeat_ngram_banned
-from layerskip_tpu_torch.generation.sampling import SamplingConfig, draw, token_distribution
+from layerskip_tpu_torch.generation.sampling import draw, token_distribution
 from layerskip_tpu_torch.generation.spec import _spec_round
 from layerskip_tpu_torch.generation.tree import _tree_round
 from layerskip_tpu_torch.models import llama
@@ -94,12 +95,8 @@ def _spec_insert_rows(
     # prefill runs on the prompt suffix at past = prefix_len
     suffix_ids: Optional[torch.Tensor] = None,  # [B, SB] suffix tokens
     *,
+    plan: RoundPlan,
     max_steps: int,
-    exit_layer: int,
-    num_speculations: int,
-    scfg: SamplingConfig,
-    eos_ids: Tuple[int, ...],
-    ngram: int = 0,
     routes: Optional[RouteSink] = None,
 ) -> _SpecState:
     """Prefill new requests into the masked rows of a live speculation
@@ -115,7 +112,7 @@ def _spec_insert_rows(
         idx = torch.as_tensor(rows, device=dev)
     with span("sync", site="insert.mask"):
         m = torch.as_tensor(np.asarray(row_mask, bool), device=dev)
-    w = num_speculations
+    w, ngram, scfg = plan.num_speculations, plan.ngram, plan.scfg
     if prefix_len is None:
         pl = torch.zeros((b,), dtype=torch.long, device=dev)
         window_ids = ids
@@ -135,7 +132,7 @@ def _spec_insert_rows(
         sub = s.early.k.table[idx]
         past = 0 if prefix_len is None else pl[idx]
         res = llama.forward_split(params, cfg, window_ids[idx], _rows_view(s.early, sub),
-                                  _rows_view(s.full, sub), past, exit_layer,
+                                  _rows_view(s.full, sub), past, plan.exit_layer,
                                   last_pos=last[idx],
                                   routes=None if routes is None
                                   else dataclasses.replace(routes, rows=idx))
@@ -143,8 +140,8 @@ def _spec_insert_rows(
         early, full = s.early, s.full
     else:
         past = torch.where(m, pl, s.early.k.shape[2] - p_bucket)
-        res = llama.forward_split(params, cfg, window_ids, s.early, s.full, past, exit_layer,
-                                  last_pos=last, routes=routes)
+        res = llama.forward_split(params, cfg, window_ids, s.early, s.full, past,
+                                  plan.exit_layer, last_pos=last, routes=routes)
         last_logits = res.logits[idx, 0]  # [rows, V]
         early, full = res.early_cache, res.full_cache
     out_size = max_steps + w + 1
@@ -173,7 +170,7 @@ def _spec_insert_rows(
         hist=torch.where(m1, hist_new, s.hist),
         out_len=torch.where(m, 1, s.out_len),
         steps=torch.where(m, row_steps, s.steps),
-        done=torch.where(m, _is_eos(tok0, eos_ids) | (row_steps <= 1), s.done),
+        done=torch.where(m, _is_eos(tok0, plan.eos_ids) | (row_steps <= 1), s.done),
         matches=torch.where(m, 0, s.matches),
         drafts=torch.where(m, 0, s.drafts),
         generator=gens,
@@ -257,23 +254,17 @@ class ContinuousSession:
     (ops/paged_kv.py), and positions past a row's mapping go to the trash
     pages."""
 
-    def __init__(self, engine, gen_cfg, batch: int, prompt_bucket: int, eos,
-                 paged=None, prefix_cache: bool = False, draft=None, tree_width: int = 0,
-                 pld_ngram: int = 0):
+    def __init__(self, engine, gen_cfg, plan: RoundPlan, batch: int, prompt_bucket: int,
+                 paged=None, prefix_cache: bool = False):
         self.engine = engine
-        self._draft = draft  # quantized draft-layer weights, or None
-        self._tree_width = tree_width  # > 1: tree rounds
-        self._pld_ngram = pld_ngram  # > 0: prompt-lookup (or hybrid) drafts
         self.gen_cfg = gen_cfg
+        self.plan = plan  # how every round drafts (Engine.round_plan)
         self.batch = batch
         self.prompt_bucket = prompt_bucket
-        self.eos = eos
         self.paged = paged  # (pool_pages, page_size) or None
-        self._scfg = SamplingConfig(sample=gen_cfg.sample, temperature=gen_cfg.temperature,
-                                    top_k=gen_cfg.top_k, top_p=gen_cfg.top_p)
         # KV slots a round may write past a row's frontier: a tree parks k
         # interleaved chains of W
-        self._slack = gen_cfg.num_speculations * max(tree_width, 1)
+        self._slack = plan.num_speculations * max(plan.tree_width, 1)
         # the longest logical context a row's frontier can reach
         self._capacity = prompt_bucket + gen_cfg.max_steps + self._slack + 2
         self.prefix_cache = None
@@ -309,7 +300,7 @@ class ContinuousSession:
     # -- device steps --------------------------------------------------------
 
     def _group(self, nlayers: int, table: Optional[torch.Tensor]):
-        cfg, kv_quant = self.engine.cfg, bool(self.gen_cfg.kv_quant)
+        cfg, kv_quant = self.engine.cfg, self.plan.kv_quant
         if self.paged:
             pool_pages, page_size = self.paged
             return init_paged_group(cfg, nlayers, self.batch, pool_pages, page_size,
@@ -319,12 +310,12 @@ class ContinuousSession:
                                self.engine.device, kv_quant)
 
     def _blank_state(self) -> _SpecState:
-        b, dev, e = self.batch, self.engine.device, self.gen_cfg.exit_layer
+        b, dev, e = self.batch, self.engine.device, self.plan.exit_layer
         table = None
         if self.paged:
             table = torch.full((b, self._max_pages), self.paged[0], dtype=torch.int32,
                                device=dev)
-        out_size = self.gen_cfg.max_steps + self.gen_cfg.num_speculations + 1
+        out_size = self.gen_cfg.max_steps + self.plan.num_speculations + 1
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.long, device=dev)  # noqa: E731
         return _SpecState(
             early=self._group(e, table),
@@ -344,7 +335,7 @@ class ContinuousSession:
 
     def _route_sink(self) -> Optional[RouteSink]:
         cfg = self.engine.cfg
-        if not cfg.is_moe or self._tree_width > 1:
+        if not cfg.is_moe or self.plan.source == "tree":
             return None
         # every slot a KV write can reach: the capacity and, over a
         # contiguous cache, the trash zone past it
@@ -361,21 +352,15 @@ class ContinuousSession:
 
     def _insert_rows(self, row_mask, ids, true_len, seeds, steps, new_table=None,
                      prefix_len=None, suffix_ids=None) -> None:
-        g = self.gen_cfg
         self.state = _spec_insert_rows(
             self.engine.params, self.engine.cfg, self.state, row_mask, ids, true_len,
-            seeds, steps, new_table, prefix_len, suffix_ids, max_steps=g.max_steps,
-            exit_layer=g.exit_layer, num_speculations=g.num_speculations,
-            scfg=self._scfg, eos_ids=self.eos, ngram=int(g.no_repeat_ngram_size or 0),
-            routes=self.routes)
+            seeds, steps, new_table, prefix_len, suffix_ids, plan=self.plan,
+            max_steps=self.gen_cfg.max_steps, routes=self.routes)
 
     def _multi_round(self, k: int) -> int:
         """Up to ``k`` rounds; stops as soon as every row is done. Returns the
         rounds run."""
-        g = self.gen_cfg
-        common = dict(exit_layer=g.exit_layer, num_speculations=g.num_speculations,
-                      scfg=self._scfg, eos_ids=self.eos,
-                      ngram=int(g.no_repeat_ngram_size or 0))
+        eng, plan = self.engine, self.plan
         ran = 0
         for _ in range(k):
             with span("session.round"):
@@ -383,17 +368,12 @@ class ContinuousSession:
                     done = bool(self.state.done.all())
                 if done:
                     break
-                if self._tree_width > 1:
-                    self.state = _tree_round(self.engine.params, self.engine.cfg,
-                                             self.state, tree_width=self._tree_width,
-                                             **common)[0]
+                if plan.source == "tree":
+                    self.state = _tree_round(eng.params, eng.cfg, self.state, plan)[0]
                 else:
-                    self.state = _spec_round(
-                        self.engine.params, self.engine.cfg, self.state,
-                        draft_exit_prob=float(g.draft_exit_prob or 0.0),
-                        pld_ngram=self._pld_ngram,
-                        hybrid=g.generation_strategy == "hybrid", draft_params=self._draft,
-                        draft_graph=self.draft_graph, routes=self.routes, **common)[0]
+                    self.state = _spec_round(eng.params, eng.cfg, self.state, plan,
+                                             draft_graph=self.draft_graph,
+                                             routes=self.routes)[0]
             ran += 1
         return ran
 
@@ -543,7 +523,7 @@ class ContinuousSession:
             mask, win, off = self._chunk_queue.pop(0)
             self.state = _chunk_prefill_rows(
                 self.engine.params, self.engine.cfg, self.state, mask, win, off,
-                exit_layer=self.gen_cfg.exit_layer, prompt_bucket=self.prompt_bucket,
+                exit_layer=self.plan.exit_layer, prompt_bucket=self.prompt_bucket,
                 routes=self.routes)
         if self._chunk_queue or self._chunk_finalize is None:
             return
@@ -573,7 +553,7 @@ class ContinuousSession:
         if not live.any():
             return 1
         remaining = int((self._steps - self._out_len)[live].min())
-        return max(-(-remaining // (self.gen_cfg.num_speculations + 1)), 1)
+        return max(-(-remaining // (self.plan.num_speculations + 1)), 1)
 
     def step(self, max_rounds: int = 1):
         """Run up to ``max_rounds`` draft+verify rounds (fewer when every
@@ -606,7 +586,7 @@ class ContinuousSession:
             finished = []
             for r in newly:
                 toks = outs[r][:min(int(self._out_len[r]), int(self._steps[r]))].tolist()
-                for e in self.eos:
+                for e in self.plan.eos_ids:
                     if e in toks:
                         toks = toks[:toks.index(e)]
                 finished.append((r, toks, float(matches[r]) / max(int(drafts[r]), 1)))

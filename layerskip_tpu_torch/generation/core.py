@@ -1,19 +1,20 @@
 """Shared generation-engine primitives (port of
 ``layerskip_tpu/generation/core.py``): KV-group construction, per-row
 update helpers, the result type, the speculation state (which carries its
-random generators) and prompt bucketing. Token ids and counters are int64
-tensors on the engine's device.
+random generators), a request's round plan and prompt bucketing. Token ids
+and counters are int64 tensors on the engine's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from layerskip_tpu_torch.config import ModelConfig
-from layerskip_tpu_torch.generation.sampling import Generators
+from layerskip_tpu_torch.generation.sampling import Generators, SamplingConfig
+from layerskip_tpu_torch.models.llama import LlamaParams
 from layerskip_tpu_torch.ops.kv_cache import KVCache, QuantKV, kv_shape
 
 
@@ -79,6 +80,34 @@ class _SpecState:
     # the random draws' source: one generator for the batch, or one per row
     # (continuous serving seeds each request's row; greedy draws nothing)
     generator: Generators = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundPlan:
+    """How every round of a request drafts, resolved once from its
+    ``GenerationConfig`` by ``Engine.round_plan`` and read by the solo
+    loops, the continuous session, the round and the draft graph.
+
+    ``source`` is ``early_exit``, ``adaptive`` (early exit that stops a
+    row's window below ``draft_exit_prob``), ``lookup`` (prompt lookup of
+    ``pld_ngram`` tokens), ``hybrid`` (lookup where every live row has a
+    match, early exit otherwise), ``tree`` (``tree_width`` chains,
+    generation/tree.py) or ``autoregressive``. ``draft_params`` is the
+    quantized copy of layers [0, exit_layer) that early-exit and adaptive
+    drafts read, or None. Nothing here depends on the prompts or the
+    budget."""
+
+    source: str
+    exit_layer: int
+    num_speculations: int
+    scfg: SamplingConfig
+    eos_ids: Tuple[int, ...]
+    ngram: int = 0  # the no-repeat n-gram ban's n (0: none)
+    pld_ngram: int = 0
+    tree_width: int = 0
+    draft_exit_prob: float = 0.0
+    draft_params: Optional[LlamaParams] = None
+    kv_quant: bool = False
 
 
 def _bucket(n: int, sizes: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096)) -> int:

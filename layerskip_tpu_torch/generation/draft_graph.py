@@ -17,14 +17,15 @@ early KV (contiguous buffers or the paged pools) and the one page table,
 which insert and park update in place. A replay refuses a state whose
 early KV is not the captured one.
 
-``eager_reason`` decides, from what the session can observe, whether it
-drafts from a graph: greedy early-exit drafting from the base weights,
-dense and unsharded, on a CUDA device. Sampled sessions (per-row
+``eager_reason`` decides, from the session's round plan and its engine,
+whether it drafts from a graph: greedy early-exit drafting from the base
+weights, dense and unsharded, on a CUDA device. Sampled sessions (per-row
 generators rebuilt at every insert, which a captured draw would keep
 using), adaptive, prompt-lookup, hybrid and tree drafting, a quantized
 drafter or base, MoE draft layers (their grouped path reads sizes on the
 host), Gemma's embedding scale (a host copy), an n-gram ban and a sharded
-engine draft eagerly, as before.
+engine draft eagerly, as before. ``DraftGraph`` refuses a plan that the
+rule's plan half (``plan_reason``) keeps eager.
 
 While a profiler records, a replay adds to ``profiling.RECORDS`` the K2
 calls the graph holds, with that replay's positions (a copy of the static
@@ -39,6 +40,7 @@ from typing import Optional
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from layerskip_tpu_torch.generation.core import RoundPlan
 from layerskip_tpu_torch.generation.spec import early_exit_draft
 from layerskip_tpu_torch.ops.cuda.paged_decode import (
     paged_decode_attention,
@@ -50,27 +52,37 @@ from layerskip_tpu_torch.utils import profiling
 WARMUP = 3  # eager runs on a side stream before the capture
 
 
+def plan_reason(plan: RoundPlan) -> Optional[str]:
+    """Why rounds of ``plan`` draft eagerly on any engine, or None for
+    greedy early-exit drafting from the base weights."""
+    checks = (
+        (plan.scfg.sample, "sampled drafts"),
+        (bool(plan.ngram), "an n-gram ban"),
+        (plan.source == "adaptive", "adaptive drafting"),
+        (plan.source in ("lookup", "hybrid"), "prompt-lookup or hybrid drafting"),
+        (plan.source == "tree", "tree drafting"),
+        (plan.draft_params is not None, "a quantized drafter"),
+    )
+    return next((why for hit, why in checks if hit), None)
+
+
 def eager_reason(session) -> Optional[str]:
     """Why ``session`` (a ``ContinuousSession``) drafts eagerly, or None
-    when its draft passes replay from a ``DraftGraph``."""
-    g, eng = session.gen_cfg, session.engine
+    when its draft passes replay from a ``DraftGraph``: a sharded engine,
+    then its plan (``plan_reason``), then the rest of its engine."""
+    eng = session.engine
+    if eng.shard is not None:
+        return "a sharded engine"
     layers = eng.params.layers
     weights = (layers.wq, layers.wk, layers.wv, layers.wo, layers.w_gate, layers.w_up,
                layers.w_down, eng.params.lm_head)
     checks = (
-        (eng.shard is not None, "a sharded engine"),
-        (session._scfg.sample, "sampled drafts"),
-        (bool(g.no_repeat_ngram_size), "an n-gram ban"),
-        (bool(g.draft_exit_prob), "adaptive drafting"),
-        (session._pld_ngram > 0, "prompt-lookup or hybrid drafting"),
-        (session._tree_width > 1, "tree drafting"),
-        (session._draft is not None, "a quantized drafter"),
         (any(isinstance(w, QuantTensor) for w in weights), "a quantized base"),
         (layers.w_router is not None, "MoE layers"),
         (eng.cfg.scale_embeddings, "an embedding scale"),
         (eng.device.type != "cuda", "no CUDA device"),
     )
-    return next((why for hit, why in checks if hit), None)
+    return plan_reason(session.plan) or next((why for hit, why in checks if hit), None)
 
 
 def _launch_counts() -> tuple:
@@ -81,17 +93,22 @@ class DraftGraph:
     """Static inputs ``next_tok`` [B, 1], ``ctx`` [B], ``hist`` [B, H] and
     ``hist_len0`` [B], and the draft of ``session``'s state captured over
     them (``capture``), or, without ``capture``, the same staging around an
-    eager call (the CPU tests). ``replays`` counts the rounds drafted."""
+    eager call (the CPU tests). ``replays`` counts the rounds drafted. The
+    session's plan must be greedy early exit from the base weights."""
 
     def __init__(self, session, capture: bool = True):
-        s, g = session.state, session.gen_cfg
+        s, plan = session.state, session.plan
+        why = plan_reason(plan)
+        if why is not None:
+            raise ValueError(f"a draft graph replays greedy early-exit drafts from the base "
+                             f"weights only, not {why}")
         self._params, self._cfg = session.engine.params, session.engine.cfg
-        self._settings = dict(exit_layer=g.exit_layer, num_speculations=g.num_speculations,
-                              scfg=session._scfg)
+        self._settings = dict(exit_layer=plan.exit_layer,
+                              num_speculations=plan.num_speculations, scfg=plan.scfg)
         self.early = s.early
         self.next_tok, self.ctx, self.hist = s.next_tok.clone(), s.ctx.clone(), s.hist.clone()
         self.hist_len0 = s.prompt_len + s.out_len
-        self._steps = torch.arange(g.num_speculations, device=s.ctx.device)
+        self._steps = torch.arange(plan.num_speculations, device=s.ctx.device)
         self.replays = 0
         self.graph = None
         self._out = None

@@ -23,6 +23,9 @@ when none is set (the split does not change its drafts); ``hybrid`` needs
 ``exit_layer``, ``num_speculations`` and ``pld_ngram`` > 0; tree
 speculation (``spec_tree_width`` > 1) applies to ``self_speculative`` only,
 and neither trees nor hybrid drafting take adaptive drafting.
+``Engine.round_plan`` makes these checks once a request and resolves how
+its rounds draft into a ``RoundPlan`` (generation/core.py), which the solo
+loops, the continuous session, the round and the draft graph read.
 
 A sharded engine (``Engine(..., mesh=, kv_shard_axis=)``, parallel/) runs
 every call under its rank's ``ShardContext``: the weights are the rank's
@@ -38,7 +41,7 @@ refused, as their slot moves cross the slabs.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +51,7 @@ from layerskip_tpu_torch.device import resolve_device
 from layerskip_tpu_torch.generation.continuous import ContinuousSession
 from layerskip_tpu_torch.generation.core import (
     GenerateOutput,
+    RoundPlan,
     _bucket,
     _is_eos,
     _mk_group_cache,
@@ -76,22 +80,20 @@ def ar_generate(
     ids: torch.Tensor,  # [B, P] right-padded prompt
     true_len: torch.Tensor,  # [B]
     generator: Generators,  # one generator, or one per row
+    plan: RoundPlan,
     *,
     max_steps: int,
-    exit_layer: int,  # <= 0 => full model; > 0 => layers [0, E) + shared head
-    scfg: SamplingConfig,
-    eos_ids: Tuple[int, ...],
     max_cache_len: int,
-    ngram: int = 0,
-    kv_quant: bool = False,
 ) -> GenerateOutput:
     """Whole AR generation: prefill (shared past 0, so the flash-prefill
     kernel runs), then one token per step for every row not yet done.
-    ``kv_quant`` keeps the KV cache in int8."""
+    ``plan.exit_layer`` > 0 runs layers [0, E) and the shared head, and
+    ``plan.kv_quant`` keeps the KV cache in int8."""
     b, p = ids.shape
     dev = ids.device
-    nlayers = exit_layer if exit_layer > 0 else cfg.num_hidden_layers
-    cache = _mk_group_cache(cfg, nlayers, b, max_cache_len, dev, kv_quant)
+    scfg, eos_ids, ngram = plan.scfg, plan.eos_ids, plan.ngram
+    nlayers = plan.exit_layer if plan.exit_layer > 0 else cfg.num_hidden_layers
+    cache = _mk_group_cache(cfg, nlayers, b, max_cache_len, dev, plan.kv_quant)
 
     def ban(logits, hist, hist_len):
         if ngram <= 0:
@@ -180,20 +182,6 @@ class Engine:
         with torch.inference_mode(), sharded(self.shard):
             yield
 
-    def _resolve_draft_quant(self, gen_cfg: GenerationConfig, strategy: str,
-                             tree_width: int) -> Tuple[int, bool, bool]:
-        """Effective ``(bits, quantize_head, mlp_only)`` for this request:
-        only early-exit drafting drafts from a separate copy, and a base that
-        is already quantized drafts cheaply as it is. The head and MLP-only
-        knobs are False whenever bits resolves to 0."""
-        bits = int(gen_cfg.draft_quant or 0)
-        if strategy != "self_speculative" or tree_width > 1 \
-                or isinstance(self.params.layers.wq, QuantTensor):
-            bits = 0
-        on = bool(bits)
-        return (bits, on and bool(gen_cfg.draft_quant_head),
-                on and bool(gen_cfg.draft_quant_mlp_only))
-
     def _draft_params(self, exit_layer: int, bits: int, head: bool = False,
                       mlp_only: bool = False) -> LlamaParams:
         """Quantized copy of layers [0, exit_layer) for cheap drafting
@@ -208,11 +196,61 @@ class Engine:
             )
         return self._draft_cache[key]
 
+    def round_plan(self, gen_cfg: GenerationConfig, eos_ids: Sequence[int] = ()) -> RoundPlan:
+        """How every round of a ``gen_cfg`` request drafts, after the JAX
+        engine's contract checks (see the module docstring): its end tokens
+        (``eos_ids``, else the model's, then ``stop_token_ids``), its
+        sampling and n-gram ban, the draft source and its settings. Only
+        early-exit drafting (adaptive included) takes a quantized drafter
+        (``draft_quant``): a base that is already quantized drafts cheaply
+        as it is."""
+        strategy = gen_cfg.generation_strategy
+        if strategy not in ("autoregressive",) + _SPEC_STRATEGIES:
+            raise ValueError(f"unknown strategy: {strategy}")
+        eos = tuple(int(x) for x in eos_ids) or tuple(self.cfg.eos_token_ids)
+        eos += tuple(int(x) for x in gen_cfg.stop_token_ids or ())
+        exit_layer, w = gen_cfg.exit_layer, gen_cfg.num_speculations
+        tree_width = int(gen_cfg.spec_tree_width or 0) if strategy == "self_speculative" else 0
+        pld = int(gen_cfg.pld_ngram or 0) if strategy in ("prompt_lookup", "hybrid") else 0
+        prob = float(gen_cfg.draft_exit_prob or 0.0)
+        if strategy == "self_speculative":
+            if not (exit_layer > 0 and w > 0):
+                raise ValueError("self_speculative needs exit_layer > 0 and num_speculations > 0")
+            if tree_width > 1 and prob:
+                raise ValueError("spec_tree_width excludes adaptive drafting")
+        elif strategy == "prompt_lookup":
+            if w <= 0:
+                raise ValueError("prompt_lookup needs num_speculations > 0")
+            if exit_layer <= 0:  # the split does not change lookup drafts
+                exit_layer = max(self.cfg.num_hidden_layers // 2, 1)
+        elif strategy == "hybrid":
+            if not (exit_layer > 0 and w > 0 and pld > 0):
+                raise ValueError("hybrid needs exit_layer > 0, num_speculations > 0 and "
+                                 "pld_ngram > 0")
+            if prob:
+                raise ValueError("hybrid and adaptive drafting are mutually exclusive")
+        source = ("autoregressive" if strategy == "autoregressive"
+                  else "hybrid" if strategy == "hybrid" else "tree" if tree_width > 1
+                  else "lookup" if pld > 0 else "adaptive" if prob > 0 else "early_exit")
+        draft = None
+        if (gen_cfg.draft_quant and strategy == "self_speculative" and tree_width <= 1
+                and not isinstance(self.params.layers.wq, QuantTensor)):
+            with self.inference():
+                draft = self._draft_params(exit_layer, int(gen_cfg.draft_quant),
+                                           bool(gen_cfg.draft_quant_head),
+                                           bool(gen_cfg.draft_quant_mlp_only))
+        return RoundPlan(
+            source=source, exit_layer=exit_layer, num_speculations=max(w, 1),
+            scfg=SamplingConfig(sample=gen_cfg.sample, temperature=gen_cfg.temperature,
+                                top_k=gen_cfg.top_k, top_p=gen_cfg.top_p),
+            eos_ids=eos, ngram=int(gen_cfg.no_repeat_ngram_size or 0), pld_ngram=pld,
+            tree_width=tree_width, draft_exit_prob=prob if source == "adaptive" else 0.0,
+            draft_params=draft, kv_quant=bool(gen_cfg.kv_quant))
+
     def _request(self, prompt_ids, gen_cfg: GenerationConfig, generator: Generators,
                  eos_ids: Sequence[int]):
-        """The validated inputs of one generation: (strategy, ids [B, bucket],
-        true lengths [B], generator(s), the loops' keyword arguments, the
-        drafter's params or None)."""
+        """The validated inputs of one generation: (its plan, ids [B, bucket],
+        true lengths [B], generator(s), the loops' per-request keywords)."""
         padded, true_lens = _pad_prompts(
             prompt_ids, fixed_bucket=gen_cfg.max_prompt_len or None
         )
@@ -221,23 +259,14 @@ class Engine:
             if len(generator) != b:
                 raise ValueError(f"{len(generator)} generators for {b} rows")
             generator = list(generator)
-        scfg = SamplingConfig(sample=gen_cfg.sample, temperature=gen_cfg.temperature,
-                              top_k=gen_cfg.top_k, top_p=gen_cfg.top_p)
-        eos = tuple(int(x) for x in eos_ids) or tuple(self.cfg.eos_token_ids)
-        if gen_cfg.stop_token_ids:
-            eos = eos + tuple(int(x) for x in gen_cfg.stop_token_ids)
-        strategy = gen_cfg.generation_strategy
-        if strategy not in ("autoregressive",) + _SPEC_STRATEGIES:
-            raise ValueError(f"unknown strategy: {strategy}")
-        exit_layer, tree_width, pld = _check_strategy(gen_cfg, self.cfg)
-        num_speculations = max(gen_cfg.num_speculations, 1)
+        plan = self.round_plan(gen_cfg, eos_ids)
         max_steps = gen_cfg.max_steps
         cap = gen_cfg.max_seq_len or self.cfg.max_position_embeddings
         if bucket + max_steps > cap:
             # keep positions inside the model's trained RoPE range
             max_steps = max(cap - bucket, 1)
         # tree speculation parks k interleaved chains past the frontier
-        max_cache_len = bucket + max_steps + num_speculations * max(tree_width, 1) + 2
+        max_cache_len = bucket + max_steps + plan.num_speculations * max(plan.tree_width, 1) + 2
         if bucket % 256 == 0:
             # the JAX package rounds to its TPU kernel's key block; kept so
             # both packages allocate the same cache
@@ -252,23 +281,13 @@ class Engine:
             padded, true_lens = padded[rows], true_lens[rows]
             if isinstance(generator, list):
                 generator = generator[rows]
-        if self.shard and self.shard.sp and tree_width > 1:
+        if self.shard and self.shard.sp and plan.source == "tree":
             raise ValueError("tree speculation moves KV slots across the sp slabs; "
                              "it does not run sequence-sharded")
         ids = torch.as_tensor(padded, dtype=torch.long, device=self.device)
         true_len = torch.as_tensor(true_lens, dtype=torch.long, device=self.device)
-        common = dict(max_steps=max_steps, exit_layer=exit_layer, scfg=scfg,
-                      eos_ids=eos, max_cache_len=max_cache_len,
-                      ngram=int(gen_cfg.no_repeat_ngram_size or 0),
-                      kv_quant=bool(gen_cfg.kv_quant))
-        draft = None
-        if strategy != "autoregressive":
-            common.update(num_speculations=num_speculations,
-                          draft_exit_prob=float(gen_cfg.draft_exit_prob or 0.0),
-                          pld_ngram=pld, hybrid=strategy == "hybrid", tree_width=tree_width)
-            bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
-            draft = self._draft_params(exit_layer, bits, dq_head, dq_mlp) if bits else None
-        return strategy, ids, true_len, generator, common, draft
+        return plan, ids, true_len, generator, dict(max_steps=max_steps,
+                                                    max_cache_len=max_cache_len)
 
     def generate(
         self,
@@ -279,14 +298,11 @@ class Engine:
         eos_ids: Sequence[int] = (),
     ) -> GenerateOutput:
         with self.inference():
-            strategy, ids, true_len, generator, common, draft = self._request(
+            plan, ids, true_len, generator, common = self._request(
                 prompt_ids, gen_cfg, generator, eos_ids)
-            if strategy == "autoregressive":
-                out = ar_generate(self.params, self.cfg, ids, true_len, generator, **common)
-            else:
-                out = spec_generate(self.params, self.cfg, ids, true_len, generator,
-                                    draft_params=draft, **common)
-            return self._gather_rows(out)
+            loop = ar_generate if plan.source == "autoregressive" else spec_generate
+            return self._gather_rows(loop(self.params, self.cfg, ids, true_len, generator,
+                                          plan, **common))
 
     def _gather_rows(self, out: GenerateOutput) -> GenerateOutput:
         """Every dp group's rows and summed counters, on every rank."""
@@ -313,13 +329,13 @@ class Engine:
         if self.shard and self.shard.dp:
             raise ValueError("stream_generate streams row 0: it does not run under dp")
         with self.inference():
-            strategy, ids, true_len, generator, common, draft = self._request(
+            plan, ids, true_len, generator, common = self._request(
                 prompt_ids, gen_cfg, generator, eos_ids)
-            if strategy == "autoregressive":
+            if plan.source == "autoregressive":
                 raise ValueError("stream_generate runs a speculative strategy, not "
                                  "'autoregressive'")
-            return spec_generate(self.params, self.cfg, ids, true_len, generator,
-                                 draft_params=draft, on_round=on_round, **common)
+            return spec_generate(self.params, self.cfg, ids, true_len, generator, plan,
+                                 on_round=on_round, **common)
 
     def continuous_session(
         self, gen_cfg: GenerationConfig, batch: int, prompt_bucket: int,
@@ -336,57 +352,19 @@ class Engine:
         (every rank inserts and steps alike); dp and sp are refused."""
         if self.shard and (self.shard.dp or self.shard.sp):
             raise ValueError("a continuous session shards over tp and ep only, not dp or sp")
-        eos = tuple(int(x) for x in eos_ids) or tuple(self.cfg.eos_token_ids)
-        if gen_cfg.stop_token_ids:
-            eos = eos + tuple(int(x) for x in gen_cfg.stop_token_ids)
-        strategy = gen_cfg.generation_strategy
-        if strategy not in _SPEC_STRATEGIES:
-            raise ValueError(f"continuous batching runs a speculative strategy, not "
-                             f"{strategy!r}")
-        _, tree_width, pld = _check_strategy(gen_cfg, self.cfg)
-        if not (0 < gen_cfg.exit_layer < self.cfg.num_hidden_layers
-                and gen_cfg.num_speculations > 0):
+        plan = self.round_plan(gen_cfg, eos_ids)
+        if plan.source == "autoregressive":
+            raise ValueError("continuous batching runs a speculative strategy, not "
+                             "'autoregressive'")
+        if not (0 < gen_cfg.exit_layer < self.cfg.num_hidden_layers):
             raise ValueError("continuous batching needs 0 < exit_layer < num_hidden_layers "
                              "and num_speculations > 0")
         paged = (int(paged_pool_pages), int(page_size)) if paged_pool_pages else None
-        bits, dq_head, dq_mlp = self._resolve_draft_quant(gen_cfg, strategy, tree_width)
-        draft = None
-        if bits:
-            with self.inference():
-                draft = self._draft_params(gen_cfg.exit_layer, bits, dq_head, dq_mlp)
-        return ContinuousSession(self, gen_cfg, batch, prompt_bucket, eos, paged=paged,
-                                 prefix_cache=prefix_cache, draft=draft,
-                                 tree_width=tree_width, pld_ngram=pld)
+        return ContinuousSession(self, gen_cfg, plan, batch, prompt_bucket, paged=paged,
+                                 prefix_cache=prefix_cache)
 
 
 _SPEC_STRATEGIES = ("self_speculative", "prompt_lookup", "hybrid")
-
-
-def _check_strategy(gen_cfg: GenerationConfig, cfg: ModelConfig) -> Tuple[int, int, int]:
-    """(exit layer, tree width, prompt-lookup n) of a speculative request,
-    after the JAX engine's contract checks."""
-    strategy = gen_cfg.generation_strategy
-    exit_layer, w = gen_cfg.exit_layer, gen_cfg.num_speculations
-    tree_width = int(gen_cfg.spec_tree_width or 0) if strategy == "self_speculative" else 0
-    pld = int(gen_cfg.pld_ngram or 0) if strategy in ("prompt_lookup", "hybrid") else 0
-    adaptive = bool(gen_cfg.draft_exit_prob)
-    if strategy == "self_speculative":
-        if not (exit_layer > 0 and w > 0):
-            raise ValueError("self_speculative needs exit_layer > 0 and num_speculations > 0")
-        if tree_width > 1 and adaptive:
-            raise ValueError("spec_tree_width excludes adaptive drafting")
-    elif strategy == "prompt_lookup":
-        if w <= 0:
-            raise ValueError("prompt_lookup needs num_speculations > 0")
-        if exit_layer <= 0:  # the split does not change lookup drafts
-            exit_layer = max(cfg.num_hidden_layers // 2, 1)
-    elif strategy == "hybrid":
-        if not (exit_layer > 0 and w > 0 and pld > 0):
-            raise ValueError("hybrid needs exit_layer > 0, num_speculations > 0 and "
-                             "pld_ngram > 0")
-        if adaptive:
-            raise ValueError("hybrid and adaptive drafting are mutually exclusive")
-    return exit_layer, tree_width, pld
 
 
 def _pad_prompts(prompt_ids, fixed_bucket=None):

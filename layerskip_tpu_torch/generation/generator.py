@@ -96,15 +96,14 @@ class LlamaGenerator:
         generator on the engine's device seeded with ``seed``. The clock
         covers the generation up to its tokens reaching the host."""
         prompt_ids = self._encode(prompt)
-        eos = self.eos_ids
-        if generation_config.stop_token_ids:
-            eos = eos + [int(t) for t in generation_config.stop_token_ids]
+        # the end tokens and the draft source as the engine resolves them
+        plan = self.engine.round_plan(generation_config, self.eos_ids)
         if generator is None:
             generator = torch.Generator(device=self.engine.device).manual_seed(seed)
 
         start = time.time()
-        out = self.engine.generate(prompt_ids, generation_config, generator, eos)
-        tokens = postprocess_output(out, eos, generation_config.max_steps)  # host sync
+        out = self.engine.generate(prompt_ids, generation_config, generator, self.eos_ids)
+        tokens = postprocess_output(out, plan.eos_ids, generation_config.max_steps)  # host sync
         total_time = time.time() - start
         if generation_config.stop_words:
             tokens = self._truncate_at_stop_words(tokens, generation_config.stop_words)
@@ -112,8 +111,7 @@ class LlamaGenerator:
             streamer.put(tokens)
             streamer.end()
         acceptance = None
-        if generation_config.generation_strategy in (
-                "self_speculative", "prompt_lookup", "hybrid"):
+        if plan.source != "autoregressive":
             acceptance = int(out.matches) / max(int(out.drafts), 1)
         return make_result(self.tokenizer, tokens, acceptance, total_time)
 

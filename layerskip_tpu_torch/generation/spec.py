@@ -3,7 +3,8 @@
 Prompt prefill, the draft+verify round and its draft sources, rejection-
 sampling acceptance, and the whole-generation loop. The loop is a Python
 ``while`` with one host sync per round (``done.all()``) where the JAX
-package runs ``lax.while_loop``. The draft sources:
+package runs ``lax.while_loop``. The draft sources, each a request's
+``RoundPlan.source`` (generation/core.py):
 
   * early-exit drafting: W steps of layers [0, E) through the shared head,
     verified by the remaining layers over the stitched window; a quantized
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from layerskip_tpu_torch.config import ModelConfig
 from layerskip_tpu_torch.generation.core import (
     GenerateOutput,
+    RoundPlan,
     _SpecState,
     _is_eos,
     _mk_group_cache,
@@ -69,37 +71,28 @@ def _spec_prefill(
     ids: torch.Tensor,  # [B, P] right-padded prompt
     true_len: torch.Tensor,  # [B]
     generator: Generators,  # one generator, or one per row
+    plan: RoundPlan,
     *,
     max_steps: int,
-    exit_layer: int,
-    num_speculations: int,
-    scfg: SamplingConfig,
-    eos_ids: Tuple[int, ...],
     max_cache_len: int,
-    ngram: int = 0,
-    kv_quant: bool = False,
 ) -> _SpecState:
     """Prompt prefill through all layers (one shared past of 0, so the
     flash-prefill kernel runs) -> the initial speculation state."""
     b, p = ids.shape
-    e, nl, w = exit_layer, cfg.num_hidden_layers, num_speculations
+    e, nl, w = plan.exit_layer, cfg.num_hidden_layers, plan.num_speculations
     if not (0 < e < nl and w >= 1):
         raise ValueError(f"need 0 < exit_layer < {nl} and num_speculations >= 1")
     dev = ids.device
     res = llama.forward_split(
         params, cfg, ids,
-        _mk_group_cache(cfg, e, b, max_cache_len, dev, kv_quant),
-        _mk_group_cache(cfg, nl - e, b, max_cache_len, dev, kv_quant),
+        _mk_group_cache(cfg, e, b, max_cache_len, dev, plan.kv_quant),
+        _mk_group_cache(cfg, nl - e, b, max_cache_len, dev, plan.kv_quant),
         0, e, last_pos=true_len - 1,
     )
-    last_logits = res.logits[:, 0]  # [B, V]
     out_size = max_steps + w + 1  # rounds may overshoot max_steps by <= W
     hist = torch.cat([ids, torch.zeros((b, out_size), dtype=ids.dtype, device=dev)], 1)
-    if ngram > 0:
-        last_logits = apply_ban(
-            last_logits, no_repeat_ngram_banned(hist, true_len, ngram, cfg.vocab_size)
-        )
-    tok0 = draw(token_distribution(last_logits, scfg), generator, scfg)  # [B]
+    last_logits = _ban(res.logits[:, 0], hist, true_len, plan.ngram, cfg.vocab_size)
+    tok0 = draw(token_distribution(last_logits, plan.scfg), generator, plan.scfg)  # [B]
     hist = _row_update(hist, tok0[:, None], true_len)
     out = torch.zeros((b, out_size), dtype=torch.long, device=dev)
     out[:, 0] = tok0
@@ -114,7 +107,7 @@ def _spec_prefill(
         hist=hist,
         out_len=torch.ones((b,), dtype=torch.long, device=dev),
         steps=torch.full((b,), max_steps, dtype=torch.long, device=dev),
-        done=_is_eos(tok0, eos_ids) | (max_steps <= 1),
+        done=_is_eos(tok0, plan.eos_ids) | (max_steps <= 1),
         matches=zeros,
         drafts=zeros.clone(),
         generator=generator,
@@ -200,20 +193,10 @@ def spec_generate(
     ids: torch.Tensor,  # [B, P] right-padded prompt
     true_len: torch.Tensor,  # [B]
     generator: Generators,  # one generator, or one per row
+    plan: RoundPlan,
     *,
     max_steps: int,
-    exit_layer: int,
-    num_speculations: int,
-    scfg: SamplingConfig,
-    eos_ids: Tuple[int, ...],
     max_cache_len: int,
-    ngram: int = 0,
-    kv_quant: bool = False,
-    draft_exit_prob: float = 0.0,
-    pld_ngram: int = 0,
-    hybrid: bool = False,
-    tree_width: int = 0,
-    draft_params: Optional[LlamaParams] = None,
     on_round: Optional[Callable[[List[int], List[int]], None]] = None,
 ) -> GenerateOutput:
     """Whole self-speculative generation: prefill, then draft+verify rounds
@@ -225,38 +208,25 @@ def spec_generate(
     rejected draft) and the tokens the round committed. It takes the place
     of the per-round ``done`` sync, so streaming adds no host transfer.
 
-    ``tree_width`` > 1 runs tree rounds (generation/tree.py); the other
-    knobs pick ``_spec_round``'s draft source."""
-    if draft_params is not None and tree_width > 1:
-        raise ValueError("draft_params is not wired into tree speculation")
-    state = _spec_prefill(
-        params, cfg, ids, true_len, generator,
-        max_steps=max_steps, exit_layer=exit_layer,
-        num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
-        max_cache_len=max_cache_len, ngram=ngram, kv_quant=kv_quant,
-    )
+    A ``tree`` plan runs tree rounds (generation/tree.py), every other
+    source ``_spec_round``'s."""
+    state = _spec_prefill(params, cfg, ids, true_len, generator, plan,
+                          max_steps=max_steps, max_cache_len=max_cache_len)
     if on_round is None:
         done = bool(state.done.all())
     else:
         *first, done = torch.cat([state.next_tok[0], state.done.all()[None]]).tolist()
         on_round([], first)
     while not done:
-        if tree_width > 1:
-            state, window, n = _tree_round(
-                params, cfg, state, exit_layer=exit_layer,
-                num_speculations=num_speculations, tree_width=tree_width, scfg=scfg,
-                eos_ids=eos_ids, ngram=ngram)
+        if plan.source == "tree":
+            state, window, n = _tree_round(params, cfg, state, plan)
         else:
-            state, window, n = _spec_round(
-                params, cfg, state, exit_layer=exit_layer,
-                num_speculations=num_speculations, scfg=scfg, eos_ids=eos_ids,
-                ngram=ngram, draft_exit_prob=draft_exit_prob, pld_ngram=pld_ngram,
-                hybrid=hybrid, draft_params=draft_params)
+            state, window, n = _spec_round(params, cfg, state, plan)
         if on_round is None:
             done = bool(state.done.all())
         else:
             *win, n0, done = torch.cat([window[0], n[:1], state.done.all()[None]]).tolist()
-            on_round(win[:num_speculations], win[:n0 + 1])
+            on_round(win[:plan.num_speculations], win[:n0 + 1])
     return GenerateOutput(
         tokens=state.out,
         num_tokens=torch.minimum(state.out_len, state.steps),
@@ -269,16 +239,8 @@ def _spec_round(
     params: LlamaParams,
     cfg: ModelConfig,
     s: _SpecState,
+    plan: RoundPlan,
     *,
-    exit_layer: int,
-    num_speculations: int,
-    scfg: SamplingConfig,
-    eos_ids: Tuple[int, ...],
-    ngram: int = 0,
-    draft_exit_prob: float = 0.0,
-    pld_ngram: int = 0,
-    hybrid: bool = False,
-    draft_params: Optional[LlamaParams] = None,
     draft_graph=None,
     routes: Optional[RouteSink] = None,
 ) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
@@ -290,13 +252,13 @@ def _spec_round(
     random draws come from the state's generator(s), row r's from its own
     when there is one per row.
 
-    The draft source: prompt lookup when ``pld_ngram`` > 0 (with ``hybrid``,
-    only in rounds where every live row has a match), else early exit,
-    confidence-adaptive when ``draft_exit_prob`` > 0. Prompt-lookup drafts
-    are one-hot distributions, under which rejection sampling accepts while
+    The draft source is ``plan.source``: prompt lookup (``lookup``, and
+    ``hybrid`` in rounds where every live row has a match), else early
+    exit, confidence-adaptive for ``adaptive``. Prompt-lookup drafts are
+    one-hot distributions, under which rejection sampling accepts while
     the verifier agrees, and the window is verified through every layer.
 
-    With ``draft_params`` (a quantized copy of layers [0, E), see
+    With ``plan.draft_params`` (a quantized copy of layers [0, E), see
     quant.quantize_draft_params) the drafts read the cheap weights, but the
     verify must not reuse their exit hiddens: it re-runs
     ``[next_tok, drafts]`` through the full base stack (``forward_split``
@@ -305,23 +267,17 @@ def _spec_round(
     drafts wrote at positions ``ctx .. ctx + W - 1``.
 
     ``draft_graph`` (generation/draft_graph.py ``DraftGraph``, built by a
-    continuous session for greedy early-exit drafting with the base
-    weights) replays the W draft passes from one CUDA graph in place of
-    launching them; every other setting drafts eagerly.
+    continuous session whose plan is greedy early-exit drafting with the
+    base weights) replays the W draft passes from one CUDA graph in place
+    of launching them.
 
     ``routes`` (a continuous session's route records) takes the experts
     each MoE layer chose where the round writes KV: the draft passes at
     layers [0, E), the verify at [E, L) and the last draft's [0, E) (a
     full-stack verify at every layer)."""
-    if draft_params is not None and (pld_ngram > 0 or hybrid):
-        raise ValueError("draft_params applies only to early-exit drafting, not to "
-                         "prompt-lookup or hybrid drafts")
-    if draft_graph is not None and (draft_params is not None or pld_ngram > 0 or hybrid
-                                    or draft_exit_prob > 0 or ngram > 0 or scfg.sample):
-        raise ValueError("a draft graph replays greedy early-exit drafts from the base "
-                         "weights only")
     b = s.next_tok.shape[0]
-    e, w = exit_layer, num_speculations
+    e, w = plan.exit_layer, plan.num_speculations
+    scfg, ngram, eos_ids, draft_params = plan.scfg, plan.ngram, plan.eos_ids, plan.draft_params
     generator = s.generator
     dev = s.next_tok.device
     hist_len0 = s.prompt_len + s.out_len  # committed history incl. next_tok
@@ -364,11 +320,11 @@ def _spec_round(
 
     def adaptive_draft_verify():
         """Early-exit drafts while a row's drafted token keeps a probability
-        of at least ``draft_exit_prob`` under the raw softmax (the token that
-        falls below stays in the window). A row that stopped keeps its
+        of at least ``plan.draft_exit_prob`` under the raw softmax (the token
+        that falls below stays in the window). A row that stopped keeps its
         generator, history and buffers; its KV writes in later steps land
         past its own window. The loop ends when no row drafts."""
-        tau = float(draft_exit_prob)
+        tau = plan.draft_exit_prob
         dparams = params if draft_params is None else draft_params
         early, tok, hist = s.early, s.next_tok, s.hist
         drafting = ~s.done  # done rows never draft
@@ -485,20 +441,17 @@ def _spec_round(
             generator=generator,
         ), window, n)
 
-    if hybrid:
-        if pld_ngram <= 0 or draft_exit_prob > 0:
-            raise ValueError("hybrid drafting needs pld_ngram > 0 and excludes adaptive "
-                             "drafting")
-        proposals, has = _pld_propose(s.hist, hist_len0, w, pld_ngram)
+    if plan.source == "hybrid":
+        proposals, has = _pld_propose(s.hist, hist_len0, w, plan.pld_ngram)
         # one host read a round picks the source; both return the same tuple
         if bool((has | s.done).all()):
             drafts, p_draft, hist, w_dyn, vres = pld_draft_verify(proposals)
         else:
             drafts, p_draft, hist, w_dyn, vres = model_draft_verify()
-    elif pld_ngram > 0:
+    elif plan.source == "lookup":
         drafts, p_draft, hist, w_dyn, vres = pld_draft_verify(
-            _pld_propose(s.hist, hist_len0, w, pld_ngram)[0])
-    elif draft_exit_prob > 0:
+            _pld_propose(s.hist, hist_len0, w, plan.pld_ngram)[0])
+    elif plan.source == "adaptive":
         drafts, p_draft, hist, w_dyn, vres = adaptive_draft_verify()
     else:
         # the early-exit path's spans: the W draft passes (replayed from the

@@ -27,14 +27,9 @@ from typing import Tuple
 import torch
 
 from layerskip_tpu_torch.config import ModelConfig
-from layerskip_tpu_torch.generation.core import _SpecState, _is_eos, _row_update
+from layerskip_tpu_torch.generation.core import RoundPlan, _SpecState, _is_eos, _row_update
 from layerskip_tpu_torch.generation.processors import apply_ban, no_repeat_ngram_banned
-from layerskip_tpu_torch.generation.sampling import (
-    SamplingConfig,
-    draw,
-    token_distribution,
-    uniform,
-)
+from layerskip_tpu_torch.generation.sampling import draw, token_distribution, uniform
 from layerskip_tpu_torch.models import llama
 from layerskip_tpu_torch.models.llama import LlamaParams
 from layerskip_tpu_torch.ops.kv_cache import KVCache, QuantKV
@@ -86,19 +81,14 @@ def _tree_round(
     params: LlamaParams,
     cfg: ModelConfig,
     s: _SpecState,
-    *,
-    exit_layer: int,
-    num_speculations: int,
-    tree_width: int,
-    scfg: SamplingConfig,
-    eos_ids: Tuple[int, ...],
-    ngram: int = 0,
+    plan: RoundPlan,
 ) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
-    """One multi-candidate draft+verify round. Returns (the new state, the
-    round's window [B, W+1], the accepted counts n [B]) as ``_spec_round``
-    does; the caches are updated in place."""
+    """One multi-candidate draft+verify round of a ``tree`` plan. Returns
+    (the new state, the round's window [B, W+1], the accepted counts n [B])
+    as ``_spec_round`` does; the caches are updated in place."""
     b = s.next_tok.shape[0]
-    e, w, kk = exit_layer, num_speculations, tree_width
+    e, w, kk = plan.exit_layer, plan.num_speculations, plan.tree_width
+    scfg, eos_ids, ngram = plan.scfg, plan.eos_ids, plan.ngram
     v_size = cfg.vocab_size
     dev = s.next_tok.device
     gen = s.generator

@@ -4,7 +4,7 @@ sessions draft from a graph, one case per condition; the graph's staging
 (static buffers copied in, the lifted ``early_exit_draft`` called on them,
 its outputs read out) through inserts, harvests and a park, equal to the
 eager session token for token and counter for counter; the K2 records a
-replay adds against the eager draft's; and the round's refusals.
+replay adds against the eager draft's; and the graph's refusals.
 """
 
 import dataclasses
@@ -15,8 +15,6 @@ import torch
 
 from layerskip_tpu_torch.config import GenerationConfig, tiny_config
 from layerskip_tpu_torch.generation.draft_graph import DraftGraph, eager_reason
-from layerskip_tpu_torch.generation.sampling import SamplingConfig
-from layerskip_tpu_torch.generation.spec import _spec_round
 from layerskip_tpu_torch.generation.engine import Engine
 from layerskip_tpu_torch.models.params import init_params
 from layerskip_tpu_torch.quant import quantize_llama_params
@@ -197,11 +195,12 @@ def test_a_replay_adds_the_draft_passes_k2_records(engine):
 @pytest.mark.parametrize("setting", ["sample", "draft_params", "pld", "hybrid", "adaptive",
                                      "ngram"])
 def test_the_round_refuses_a_graph_outside_greedy_early_exit(setting, engine):
-    kw = dict(exit_layer=2, num_speculations=3, scfg=SamplingConfig(sample=False),
-              eos_ids=tuple(EOS))
-    kw.update({"sample": dict(scfg=SamplingConfig(sample=True)),
-               "draft_params": dict(draft_params=engine.params),
-               "pld": dict(pld_ngram=2), "hybrid": dict(pld_ngram=2, hybrid=True),
-               "adaptive": dict(draft_exit_prob=0.3), "ngram": dict(ngram=2)}[setting])
-    with pytest.raises(ValueError, match="draft graph"):
-        _spec_round(engine.params, engine.cfg, None, draft_graph=object(), **kw)
+    """``DraftGraph``, the one place a round's graph is built, refuses a
+    session whose plan is not greedy early exit from the base weights."""
+    case = {"sample": "sampled", "draft_params": "quantized_drafter", "pld": "prompt_lookup",
+            "hybrid": "hybrid", "adaptive": "adaptive", "ngram": "ngram_ban"}[setting]
+    _, gen_kw, why = RULE[case]
+    session = engine.continuous_session(dataclasses.replace(GEN, **gen_kw), 2, 16, EOS,
+                                        **PAGED)
+    with pytest.raises(ValueError, match=f"draft graph .* not {why}"):
+        _staged(session)

@@ -182,24 +182,13 @@ def test_prefill_dispatches_to_flash_once_per_layer(engines, monkeypatch):
         assert calls == [(1, 64, HQ, DH)] * L
 
 
-def test_unported_options_raise(engines):
-    """Prompt lookup, tree speculation and adaptive drafting (also with a
-    quantized drafter), which raised before this port carried them, run
-    and equal the JAX engine; the contract errors that remain (tree or
-    hybrid with adaptive drafting, hybrid without a lookup length) are
-    ValueErrors. The int8 KV cache and quantized drafters run
-    (tests/test_torch_quant.py holds them to the JAX engine)."""
+def test_generate_refuses_what_the_contract_refuses(engines):
+    """The contract errors of ``generate`` (tree or hybrid with adaptive
+    drafting, hybrid without a lookup length) are ValueErrors; the int8 KV
+    cache and a quantized drafter run (tests/test_torch_quant.py holds them
+    to the JAX engine, tests/test_torch_drafting.py and
+    tests/test_torch_tree.py every draft source)."""
     spec = dict(generation_strategy="self_speculative", exit_layer=2, num_speculations=3)
-    for kw in (dict(generation_strategy="prompt_lookup", num_speculations=3),
-               dict(spec, spec_tree_width=2),
-               dict(spec, draft_exit_prob=0.5),
-               dict(spec, draft_exit_prob=0.5, draft_quant=8)):
-        jout = engines[0].generate(PROMPT, JGenerationConfig(max_steps=8, sample=False, **kw),
-                                   jax.random.PRNGKey(0), eos_ids=(V + 7,))
-        tout = engines[1].generate(PROMPT, GenerationConfig(max_steps=8, sample=False, **kw),
-                                   eos_ids=(V + 7,))
-        _assert_same(jout, tout)
-        assert int(tout.num_tokens[0]) == 8
     _, te = engines
     for kw in (dict(spec, spec_tree_width=2, draft_exit_prob=0.5),
                dict(spec, generation_strategy="hybrid", draft_exit_prob=0.5),

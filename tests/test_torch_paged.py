@@ -643,19 +643,13 @@ def test_sampled_stream_depends_only_on_the_request(engines):
     assert run(0, 8, False) != alone
 
 
-def test_unported_options_raise(engines):
-    """Paged sessions with prompt lookup, tree speculation and adaptive
-    drafting, which raised before this port carried them, serve the JAX
-    session's streams and counters; tree or hybrid with adaptive drafting
-    and a prefix cache without paging stay ValueErrors."""
-    je, te = engines
+def test_paged_session_refuses_what_the_contract_refuses(engines):
+    """A paged session refuses tree or hybrid with adaptive drafting, and a
+    session refuses a prefix cache without paging, with ValueErrors
+    (tests/test_torch_drafting.py and tests/test_torch_tree.py hold paged
+    sessions of every draft source to the JAX package's)."""
+    _, te = engines
     paged = dict(paged_pool_pages=12, page_size=16)
-    for kw in (dict(generation_strategy="prompt_lookup", pld_ngram=1),
-               dict(spec_tree_width=2), dict(draft_exit_prob=0.5)):
-        got = _drive(te.continuous_session(_gen(GenerationConfig, **kw), 2, 16, EOS, **paged))
-        want = _drive(je.continuous_session(_gen(JGenerationConfig, **kw), 2, 16, EOS,
-                                            **paged))
-        assert got == want, kw
     for kw in (dict(spec_tree_width=2, draft_exit_prob=0.5),
                dict(generation_strategy="hybrid", draft_exit_prob=0.5)):
         with pytest.raises(ValueError):

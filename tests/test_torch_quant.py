@@ -478,5 +478,6 @@ def test_draft_quant_noop_on_quantized_base_and_on_ar(engines):
     out = eng.generate(PROMPT[:5], _gen_cfg(GenerationConfig, max_steps=6, draft_quant=4,
                                             draft_quant_head=True))
     assert eng._draft_cache == {} and int(out.num_tokens[0]) == 6
-    assert eng._resolve_draft_quant(GenerationConfig(draft_quant=4, draft_quant_head=True),
-                                    "self_speculative", 2) == (0, False, False)
+    plan = eng.round_plan(_gen_cfg(GenerationConfig, exit_layer=2, num_speculations=3,
+                                   spec_tree_width=2, draft_quant=4, draft_quant_head=True))
+    assert plan.source == "tree" and plan.draft_params is None and eng._draft_cache == {}
