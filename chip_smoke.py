@@ -161,10 +161,10 @@ Phases (any failed check exits non-zero, without the final ``ok`` line):
      ``bench_torch_longctx`` at 1B over 30720 tokens (K1 >= 16 launches a
      prefill, greedy spec == AR, peak memory) and ``bench_torch_adaptive``
      at 7B, each JSON line logged;
-  15. continuous sessions drafting from a CUDA graph
+  15. continuous sessions drafting and verifying from two CUDA graphs
      (``generation/draft_graph.py``): (a) phase 4's fp32 model, graphed
      paged (fp32 and int8 pools) and contiguous sessions == solo
-     ``generate`` exactly, one replay a round; (b) Mistral-7B's widths over
+     ``generate`` exactly, one replay of each graph a round; (b) Mistral-7B's widths over
      4 layers in bf16, graphed == eager sessions (tokens, matches, drafts)
      over those caches and the contiguous int8 cache, and one profiled
      round of each over the bf16 pool: K2 records equal, the trace's
@@ -4371,16 +4371,17 @@ def p15_same_records(a, b) -> bool:
 
 
 def draft_graph_phase(card):
-    """Phase 15: continuous sessions whose draft passes replay from a CUDA
-    graph (generation/draft_graph.py). (a) phase 4's fp32 model, 4 slots
-    and six requests joining as slots free: every graphed session == solo
-    ``generate`` exactly, over the fp32 and int8 paged pools and the
-    contiguous cache, with one replay a round; (b) Mistral-7B's widths over
-    4 layers in bf16 (exit 2, W 6, 8 slots, pages of 128, twelve requests
-    joining as slots free): graphed == eager sessions in tokens, matches
-    and drafts over the same three caches and the contiguous int8 cache,
-    one replay a round, and, mid-run over the bf16 pool, one profiled round
-    of each: the K2 records equal, the kernels the trace sees within 5%."""
+    """Phase 15: continuous sessions whose draft passes, then verify,
+    replay from two CUDA graphs (generation/draft_graph.py). (a) phase 4's
+    fp32 model, 4 slots and six requests joining as slots free: every
+    graphed session == solo ``generate`` exactly, over the fp32 and int8
+    paged pools and the contiguous cache, with one replay of each graph a
+    round; (b) Mistral-7B's widths over 4 layers in bf16 (exit 2, W 6, 8
+    slots, pages of 128, twelve requests joining as slots free): graphed ==
+    eager sessions in tokens, matches and drafts over the same three caches
+    and the contiguous int8 cache, one replay of each graph a round, and,
+    mid-run over the bf16 pool, one profiled round of each: the K2 records
+    equal, the kernels the trace sees within 5%."""
     import dataclasses as dc
 
     from layerskip_tpu_torch.config import GenerationConfig
@@ -4403,17 +4404,18 @@ def draft_graph_phase(card):
         session = eng.continuous_session(g, batch=4, prompt_bucket=64, eos_ids=eos,
                                          **(dict(paged_pool_pages=40, page_size=16)
                                             if paged else {}))
-        graph = session.draft_graph
+        graph, vgraph = session.draft_graph, session.verify_graph
         got, rounds = p15_served(session, prompts, budgets)
         want = [postprocess_output(eng.generate(p, dc.replace(g, max_steps=m), eos_ids=eos),
                                    eos, m) for p, m in zip(prompts, budgets)]
         same = [got[i][0] == want[i] for i in range(len(prompts))]
-        good = (graph is not None and all(same) and graph.replays == rounds > 0)
+        good = (graph is not None and vgraph is not None and all(same)
+                and graph.replays == vgraph.replays == rounds > 0)
         ok &= good
-        log(f"[phase 15 (a)] fp32 {label}: graph {graph is not None} "
+        log(f"[phase 15 (a)] fp32 {label}: graphs {graph is not None}/{vgraph is not None} "
             f"({eager_reason(session)}), session == solo for {sum(same)}/{len(same)}, "
-            f"replays {graph.replays if graph else 0} of {rounds} rounds -> "
-            f"{'PASS' if good else 'FAIL'}")
+            f"replays {graph.replays if graph else 0}/{vgraph.replays if vgraph else 0} of "
+            f"{rounds} rounds -> {'PASS' if good else 'FAIL'}")
 
     cfg, params = p15_mistral_4l()
     eng = Engine(params, cfg, device="cuda")
@@ -4429,12 +4431,12 @@ def draft_graph_phase(card):
         kw = dict(paged_pool_pages=40, page_size=128) if paged else {}
         t0 = time.time()
         eager = eng.continuous_session(g, batch=8, prompt_bucket=256, eos_ids=eos, **kw)
-        eager.draft_graph = None
+        eager.draft_graph = eager.verify_graph = None
         t1 = time.time()
         session = eng.continuous_session(g, batch=8, prompt_bucket=256, eos_ids=eos, **kw)
         torch.cuda.synchronize()
         t2 = time.time()
-        graph = session.draft_graph
+        graph, vgraph = session.draft_graph, session.verify_graph
         probe = {}
         at = None
         if label == "paged":
@@ -4444,12 +4446,14 @@ def draft_graph_phase(card):
             at = (3, lambda s: probe.setdefault("graph", p15_profiled_round(s)))
         got, rounds = p15_served(session, prompts, budgets, at)
         same = [got[i] == want[i] for i in range(len(prompts))]
-        good = (graph is not None and all(same) and graph.replays == rounds == eager_rounds)
+        good = (graph is not None and vgraph is not None and all(same)
+                and graph.replays == vgraph.replays == rounds == eager_rounds)
         acc = sum(m for _, m, _ in got.values()) / max(sum(d for _, _, d in got.values()), 1)
         log(f"[phase 15 (b)] bf16 4-layer Mistral {label}: graph {graph is not None}, "
             f"graphed == eager (tokens, matches, drafts) for {sum(same)}/{len(same)} requests "
             f"({sum(len(t) for t, _, _ in got.values())} tokens, acceptance {acc:.4f}), "
-            f"replays {graph.replays if graph else 0} of {rounds} rounds (eager {eager_rounds}), "
+            f"replays {graph.replays if graph else 0}/{vgraph.replays if vgraph else 0} of "
+            f"{rounds} rounds (eager {eager_rounds}), "
             f"session built in {t2 - t1:.3f} s (eager {t1 - t0:.3f} s) -> "
             f"{'PASS' if good else 'FAIL'}")
         stats[f"p15_{label.replace(' ', '_')}_exact"] = all(same)

@@ -48,7 +48,7 @@ from layerskip_tpu_torch.generation.core import (
     _mk_group_cache,
     _row_update,
 )
-from layerskip_tpu_torch.generation.draft_graph import DraftGraph, eager_reason
+from layerskip_tpu_torch.generation.draft_graph import DraftGraph, VerifyGraph, eager_reason
 from layerskip_tpu_torch.generation.processors import apply_ban, no_repeat_ngram_banned
 from layerskip_tpu_torch.generation.sampling import draw, token_distribution
 from layerskip_tpu_torch.generation.spec import _spec_round
@@ -229,15 +229,18 @@ class ContinuousSession:
     cover the methods; ``request_ids`` holds the request each slot serves
     (-1 for none), set by the caller before ``insert``, for those spans.
 
-    ``draft_graph``: for greedy early-exit drafting from the base weights
-    (dense, unsharded, on a CUDA device; ``draft_graph.eager_reason``
-    says why not otherwise) the session captures the W draft passes of a
-    round in one CUDA graph when it is built, over its blank state, and
-    every round replays it (the ``spec.draft`` span's ``graph`` is 1).
+    ``draft_graph`` and ``verify_graph``: for greedy early-exit drafting
+    from the base weights (dense, unsharded, on a CUDA device;
+    ``draft_graph.eager_reason`` says why not otherwise) the session
+    captures the W draft passes of a round in one CUDA graph and the
+    verify pass with acceptance and commit in another when it is built,
+    over its blank state, and every round replays both (the ``spec.draft``
+    and ``spec.verify`` spans' ``graph`` is 1); ``state`` then holds the
+    verify graph's static outputs, which the next round copies back in.
     Sampled, adaptive, prompt-lookup, hybrid, tree, quantized-drafter, MoE
-    and sharded sessions draft eagerly (``draft_graph`` None, ``graph``
-    0). Insert and park update the KV pools and the page table in place,
-    at the addresses the graph holds.
+    and sharded sessions draft and verify eagerly (both None, ``graph``
+    0). Insert and park build the state anew and update the KV pools and
+    the page table in place, at the addresses the graphs hold.
 
     ``routes``: over a mixture-of-experts model (tree rounds excepted,
     whose chains share positions) a ``RouteSink`` over a uint8 buffer [L,
@@ -280,9 +283,13 @@ class ContinuousSession:
         with self.engine.inference():
             self.state = self._blank_state()
             self.routes = self._route_sink()
-            # the draft passes of each round replay from one CUDA graph,
-            # captured here over the blank state, where the session allows
-            self.draft_graph = None if eager_reason(self) else DraftGraph(self)
+            # the draft passes, then the verify, of each round replay from
+            # two CUDA graphs, captured here over the blank state, where the
+            # session allows
+            self.draft_graph = self.verify_graph = None
+            if eager_reason(self) is None:
+                self.draft_graph = DraftGraph(self)
+                self.verify_graph = VerifyGraph(self, self.draft_graph)
         self.active = np.zeros(batch, bool)  # slot holds a live request
         self.request_ids = np.full(batch, -1, np.int64)
         # host mirrors from the last sync, for min_rounds_bound()
@@ -373,6 +380,7 @@ class ContinuousSession:
                 else:
                     self.state = _spec_round(eng.params, eng.cfg, self.state, plan,
                                              draft_graph=self.draft_graph,
+                                             verify_graph=self.verify_graph,
                                              routes=self.routes)[0]
             ran += 1
         return ran

@@ -25,13 +25,16 @@ Committed tokens do not depend on the draft source: greedy output equals
 greedy AR for every one. The int8 KV cache (``kv_quant``) runs in every
 round.
 
-The W early-exit draft passes are one function, ``early_exit_draft``. A
-continuous session whose rounds are greedy early-exit drafts from the
-base weights (dense, unsharded, on a CUDA device) replays them from one
-CUDA graph of that function (generation/draft_graph.py), copying each
-round's inputs into its static buffers; sampled, adaptive, prompt-lookup,
-hybrid, tree, quantized-drafter, MoE and sharded sessions, and
-``spec_generate``'s solo loop, launch them eagerly.
+The W early-exit draft passes are one function, ``early_exit_draft``, and
+the verify of their window with acceptance and commit another,
+``early_exit_verify`` (acceptance and commit, ``accept_and_commit``, serve
+every draft source). A continuous session whose rounds are greedy
+early-exit drafts from the base weights (dense, unsharded, on a CUDA
+device) replays each from one CUDA graph of that function
+(generation/draft_graph.py), copying each round's inputs into their
+static buffers; sampled, adaptive, prompt-lookup, hybrid, tree,
+quantized-drafter, MoE and sharded sessions, and ``spec_generate``'s solo
+loop, launch them eagerly. A greedy round draws nothing.
 """
 
 from __future__ import annotations
@@ -235,6 +238,122 @@ def spec_generate(
     )
 
 
+def _full_verify(params: LlamaParams, cfg: ModelConfig, s: _SpecState, plan: RoundPlan,
+                 drafts: torch.Tensor, routes: Optional[RouteSink]) -> llama.RemainderResult:
+    """The window [next_tok, drafts] through every layer from ``s.ctx``."""
+    return llama.forward_split(params, cfg, torch.cat([s.next_tok, drafts], dim=1), s.early,
+                               s.full, s.ctx, plan.exit_layer, routes=routes)
+
+
+def accept_and_commit(
+    cfg: ModelConfig,
+    s: _SpecState,
+    plan: RoundPlan,
+    hist_len0: torch.Tensor,  # [B] committed history incl. next_tok
+    drafts: torch.Tensor,  # [B, W]
+    p_draft: torch.Tensor,  # [B, W, V] the drafts' distributions
+    hist: torch.Tensor,  # [B, H] the history with the drafts
+    w_dyn: torch.Tensor,  # [B] each row's window
+    vres: llama.RemainderResult,  # the verify pass
+) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
+    """Acceptance by rejection sampling, the extra token, and the commit:
+    the round's return value, for every draft source. A greedy round draws
+    nothing: its distributions are one-hot, so ``u * pd_d < pv_d`` holds
+    exactly where ``pv_d`` is 1 for any u in [0, 1), and it takes u = 0."""
+    b, w = drafts.shape[0], plan.num_speculations
+    scfg, ngram, eos_ids, generator = plan.scfg, plan.ngram, plan.eos_ids, s.generator
+    dev = drafts.device
+    vlogits = vres.logits
+    if ngram > 0:
+        vlogits = torch.stack([_ban(vlogits[:, j], hist, hist_len0 + j, ngram, cfg.vocab_size)
+                               for j in range(w + 1)], dim=1)
+    p_verify = token_distribution(vlogits, scfg)  # [B, W+1, V]
+
+    # ---- acceptance: rejection sampling; one-hot => greedy prefix match ----
+    pv_d = torch.gather(p_verify[:, :w], 2, drafts[..., None])[..., 0]  # [B, W]
+    pd_d = torch.gather(p_draft, 2, drafts[..., None])[..., 0]
+    u = uniform((b, w), generator, dev) if scfg.sample else torch.zeros((b, w), device=dev)
+    accept = (u * pd_d < pv_d) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
+    n_raw = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [B]
+    # clamp acceptances near max_steps so committed counts match the
+    # reference's shrinking window
+    w_eff = (s.steps - s.out_len - 1).clamp(0, w)
+    n = torch.minimum(n_raw, w_eff)
+
+    # extra token: residual resample on rejection, bonus draw otherwise
+    rows = torch.arange(b, device=dev)
+    pv_n = p_verify[rows, n]  # [B, V]
+    pd_n = p_draft[rows, torch.minimum(n, w_dyn - 1)]
+    residual = (pv_n - pd_n).clamp_min(0.0)
+    residual = residual / residual.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    all_accepted = (n == w_dyn) | (n == w_eff)
+    extra_tok = draw(torch.where(all_accepted[:, None], pv_n, residual), generator, scfg)
+
+    # ---- commit: accepted drafts + extra token; KV rollback is ctx ----
+    window = torch.cat([drafts, torch.zeros((b, 1), dtype=drafts.dtype, device=dev)], 1)
+    idx = torch.arange(w + 1, device=dev)[None, :]
+    window = torch.where(idx == n[:, None], extra_tok[:, None], window)
+    active = ~s.done  # frozen rows keep buffers and counters fixed
+    out = torch.where(active[:, None], _row_update(s.out, window, s.out_len), s.out)
+    hist = torch.where(active[:, None], _row_update(hist, window, hist_len0), s.hist)
+    committed = torch.where(active, n + 1, 0)
+    out_len = s.out_len + committed
+
+    eos_hit = (_is_eos(window, eos_ids) & (idx <= n[:, None])).any(dim=1)
+    done = s.done | eos_hit | (out_len >= s.steps)
+
+    # acceptance stats: a round drafts min(W, first drafted EOS + 1) tokens,
+    # none past the max_steps clamp; matches are capped to that count
+    d_eos = _is_eos(drafts, eos_ids) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
+    eos_cap = torch.where(d_eos.any(dim=1), torch.argmax(d_eos.int(), dim=1) + 1, w)
+    drafted = torch.minimum(torch.minimum(w_eff, eos_cap), w_dyn)
+    act = active.long()
+    return (_SpecState(
+        early=vres.early_cache,
+        full=vres.full_cache,
+        ctx=s.ctx + committed,
+        prompt_len=s.prompt_len,
+        next_tok=extra_tok[:, None],
+        out=out,
+        hist=hist,
+        out_len=out_len,
+        steps=s.steps,
+        done=done,
+        matches=s.matches + torch.minimum(n, drafted) * act,
+        drafts=s.drafts + drafted * act,
+        generator=generator,
+    ), window, n)
+
+
+def early_exit_verify(
+    params: LlamaParams,
+    cfg: ModelConfig,
+    s: _SpecState,
+    plan: RoundPlan,
+    drafted: tuple,  # early_exit_draft's outputs
+    hist_len0: torch.Tensor,  # [B] committed history incl. next_tok
+    routes: Optional[RouteSink] = None,
+) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
+    """The verify of an early-exit round, then ``accept_and_commit``: the
+    stitched window (the exit hiddens, then the last draft through layers
+    [0, E)) through the remaining layers or, after a quantized draft, the
+    whole window through the base stack. The eager round calls it, and a
+    session's ``VerifyGraph`` captures this same function
+    (generation/draft_graph.py)."""
+    drafts, d_probs, hist, tok, exit_h, early = drafted
+    b, w = drafts.shape
+    if plan.draft_params is None:
+        vres = llama.forward_remainder(
+            params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
+            draft_len=s.ctx + w, full_len=s.ctx, exit_layer=plan.exit_layer, routes=routes,
+        )
+    else:
+        vres = _full_verify(params, cfg, s, plan, drafts, routes)
+    w_dyn = torch.full((b,), w, dtype=torch.long, device=drafts.device)
+    return accept_and_commit(cfg, s, plan, hist_len0, drafts, torch.stack(d_probs, dim=1),
+                             hist, w_dyn, vres)
+
+
 def _spec_round(
     params: LlamaParams,
     cfg: ModelConfig,
@@ -242,6 +361,7 @@ def _spec_round(
     plan: RoundPlan,
     *,
     draft_graph=None,
+    verify_graph=None,
     routes: Optional[RouteSink] = None,
 ) -> Tuple[_SpecState, torch.Tensor, torch.Tensor]:
     """One draft+verify round: each active row commits its accepted drafts
@@ -266,10 +386,12 @@ def _spec_round(
     greedy output equals base AR. That pass rewrites the early KV the
     drafts wrote at positions ``ctx .. ctx + W - 1``.
 
-    ``draft_graph`` (generation/draft_graph.py ``DraftGraph``, built by a
-    continuous session whose plan is greedy early-exit drafting with the
-    base weights) replays the W draft passes from one CUDA graph in place
-    of launching them.
+    ``draft_graph`` and ``verify_graph`` (generation/draft_graph.py
+    ``DraftGraph`` and ``VerifyGraph``, built together by a continuous
+    session whose plan is greedy early-exit drafting with the base weights)
+    replay the W draft passes, then the verify with acceptance and commit,
+    from two CUDA graphs in place of launching them; the new state is then
+    the verify graph's static outputs, which the next replay overwrites.
 
     ``routes`` (a continuous session's route records) takes the experts
     each MoE layer chose where the round writes KV: the draft passes at
@@ -277,7 +399,7 @@ def _spec_round(
     full-stack verify at every layer)."""
     b = s.next_tok.shape[0]
     e, w = plan.exit_layer, plan.num_speculations
-    scfg, ngram, eos_ids, draft_params = plan.scfg, plan.ngram, plan.eos_ids, plan.draft_params
+    scfg, ngram, draft_params = plan.scfg, plan.ngram, plan.draft_params
     generator = s.generator
     dev = s.next_tok.device
     hist_len0 = s.prompt_len + s.out_len  # committed history incl. next_tok
@@ -286,9 +408,7 @@ def _spec_round(
         return _ban(logits, hist, hist_len, ngram, cfg.vocab_size)
 
     def full_verify(drafts):
-        """The window [next_tok, drafts] through every layer from ``s.ctx``."""
-        return llama.forward_split(params, cfg, torch.cat([s.next_tok, drafts], dim=1),
-                                   s.early, s.full, s.ctx, e, routes=routes)
+        return _full_verify(params, cfg, s, plan, drafts, routes)
 
     def pld_draft_verify(proposals):
         """Copied drafts, one-hot, verified through every layer."""
@@ -296,27 +416,11 @@ def _spec_round(
                 _row_update(s.hist, proposals, hist_len0),
                 torch.full((b,), w, dtype=torch.long, device=dev), full_verify(proposals))
 
-    def model_verify(drafts, d_probs, hist, tok, exit_h, early):
-        """The stitched window through the remaining layers, or, after a
-        quantized draft, the whole window through the base stack."""
-        if draft_params is None:
-            vres = llama.forward_remainder(
-                params, cfg, tok, torch.stack(exit_h, dim=1), early, s.full,
-                draft_len=s.ctx + w, full_len=s.ctx, exit_layer=e, routes=routes,
-            )
-        else:
-            vres = full_verify(drafts)
-        return (drafts, torch.stack(d_probs, dim=1), hist,
-                torch.full((b,), w, dtype=torch.long, device=dev), vres)
-
     def model_draft():
         return early_exit_draft(
             params if draft_params is None else draft_params, cfg, s.early, s.next_tok, s.ctx,
             s.hist, hist_len0, exit_layer=e, num_speculations=w, scfg=scfg,
             generator=generator, ngram=ngram, routes=routes)
-
-    def model_draft_verify():
-        return model_verify(*model_draft())
 
     def adaptive_draft_verify():
         """Early-exit drafts while a row's drafted token keeps a probability
@@ -376,89 +480,23 @@ def _spec_round(
                                      full_cache=KVCache(k=kf, v=vf))
         return drafts, p_draft, hist, w_dyn, vres
 
-    def accept_and_commit(drafts, p_draft, hist, w_dyn, vres):
-        """Acceptance by rejection sampling, the extra token, and the commit:
-        the round's return value."""
-        vlogits = vres.logits
-        if ngram > 0:
-            vlogits = torch.stack(
-                [ban(vlogits[:, j], hist, hist_len0 + j) for j in range(w + 1)], dim=1
-            )
-        p_verify = token_distribution(vlogits, scfg)  # [B, W+1, V]
-
-        # ---- acceptance: rejection sampling; one-hot => greedy prefix match ----
-        pv_d = torch.gather(p_verify[:, :w], 2, drafts[..., None])[..., 0]  # [B, W]
-        pd_d = torch.gather(p_draft, 2, drafts[..., None])[..., 0]
-        u = uniform((b, w), generator, dev)
-        accept = (u * pd_d < pv_d) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
-        n_raw = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [B]
-        # clamp acceptances near max_steps so committed counts match the
-        # reference's shrinking window
-        w_eff = (s.steps - s.out_len - 1).clamp(0, w)
-        n = torch.minimum(n_raw, w_eff)
-
-        # extra token: residual resample on rejection, bonus draw otherwise
-        rows = torch.arange(b, device=dev)
-        pv_n = p_verify[rows, n]  # [B, V]
-        pd_n = p_draft[rows, torch.minimum(n, w_dyn - 1)]
-        residual = (pv_n - pd_n).clamp_min(0.0)
-        residual = residual / residual.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        all_accepted = (n == w_dyn) | (n == w_eff)
-        extra_tok = draw(torch.where(all_accepted[:, None], pv_n, residual), generator, scfg)
-
-        # ---- commit: accepted drafts + extra token; KV rollback is ctx ----
-        window = torch.cat([drafts, torch.zeros((b, 1), dtype=drafts.dtype, device=dev)], 1)
-        idx = torch.arange(w + 1, device=dev)[None, :]
-        window = torch.where(idx == n[:, None], extra_tok[:, None], window)
-        active = ~s.done  # frozen rows keep buffers and counters fixed
-        out = torch.where(active[:, None], _row_update(s.out, window, s.out_len), s.out)
-        hist = torch.where(active[:, None], _row_update(hist, window, hist_len0), s.hist)
-        committed = torch.where(active, n + 1, 0)
-        out_len = s.out_len + committed
-
-        eos_hit = (_is_eos(window, eos_ids) & (idx <= n[:, None])).any(dim=1)
-        done = s.done | eos_hit | (out_len >= s.steps)
-
-        # acceptance stats: a round drafts min(W, first drafted EOS + 1) tokens,
-        # none past the max_steps clamp; matches are capped to that count
-        d_eos = _is_eos(drafts, eos_ids) & (torch.arange(w, device=dev)[None, :] < w_dyn[:, None])
-        eos_cap = torch.where(d_eos.any(dim=1), torch.argmax(d_eos.int(), dim=1) + 1, w)
-        drafted = torch.minimum(torch.minimum(w_eff, eos_cap), w_dyn)
-        act = active.long()
-        return (_SpecState(
-            early=vres.early_cache,
-            full=vres.full_cache,
-            ctx=s.ctx + committed,
-            prompt_len=s.prompt_len,
-            next_tok=extra_tok[:, None],
-            out=out,
-            hist=hist,
-            out_len=out_len,
-            steps=s.steps,
-            done=done,
-            matches=s.matches + torch.minimum(n, drafted) * act,
-            drafts=s.drafts + drafted * act,
-            generator=generator,
-        ), window, n)
-
     if plan.source == "hybrid":
         proposals, has = _pld_propose(s.hist, hist_len0, w, plan.pld_ngram)
-        # one host read a round picks the source; both return the same tuple
+        # one host read a round picks the source
         if bool((has | s.done).all()):
-            drafts, p_draft, hist, w_dyn, vres = pld_draft_verify(proposals)
-        else:
-            drafts, p_draft, hist, w_dyn, vres = model_draft_verify()
-    elif plan.source == "lookup":
-        drafts, p_draft, hist, w_dyn, vres = pld_draft_verify(
-            _pld_propose(s.hist, hist_len0, w, plan.pld_ngram)[0])
-    elif plan.source == "adaptive":
-        drafts, p_draft, hist, w_dyn, vres = adaptive_draft_verify()
-    else:
-        # the early-exit path's spans: the W draft passes (replayed from the
-        # session's graph, or launched one kernel at a time), then the
-        # verify pass with acceptance and commit
-        with span("spec.draft", graph=int(draft_graph is not None)):
-            drafted = model_draft() if draft_graph is None else draft_graph.replay(s, hist_len0)
-        with span("spec.verify"):
-            return accept_and_commit(*model_verify(*drafted))
-    return accept_and_commit(drafts, p_draft, hist, w_dyn, vres)
+            return accept_and_commit(cfg, s, plan, hist_len0, *pld_draft_verify(proposals))
+        return early_exit_verify(params, cfg, s, plan, model_draft(), hist_len0, routes)
+    if plan.source == "lookup":
+        return accept_and_commit(cfg, s, plan, hist_len0, *pld_draft_verify(
+            _pld_propose(s.hist, hist_len0, w, plan.pld_ngram)[0]))
+    if plan.source == "adaptive":
+        return accept_and_commit(cfg, s, plan, hist_len0, *adaptive_draft_verify())
+    # the early-exit path's spans: the W draft passes, then the verify pass
+    # with acceptance and commit, each replayed from the session's graph
+    # (``graph`` 1) or launched one kernel at a time
+    with span("spec.draft", graph=int(draft_graph is not None)):
+        drafted = model_draft() if draft_graph is None else draft_graph.replay(s, hist_len0)
+    with span("spec.verify", graph=int(verify_graph is not None)):
+        if verify_graph is None:
+            return early_exit_verify(params, cfg, s, plan, drafted, hist_len0, routes)
+        return verify_graph.replay(s, drafted)

@@ -229,7 +229,8 @@ def _hand_made(rec):
         r = _add(rec, "session.round", r0, r0 + 0.1, st)
         _add(rec, "sync", r0, r0 + sync, r)
         _add(rec, "spec.draft", r0 + sync, r0 + sync + draft, r, graph=graph)
-        _add(rec, "spec.verify", r0 + sync + draft, r0 + sync + draft + verify, r)
+        _add(rec, "spec.verify", r0 + sync + draft, r0 + sync + draft + verify, r,
+             graph=1 - graph)
     _add(rec, "sync", 10.4, 10.403, st)
     b = _add(rec, "sched.loop", 11.0, 11.2)
     _add(rec, "sched.wait", 11.0, 11.2, b)
@@ -240,6 +241,7 @@ def _hand_made(rec):
     _add(rec, "session.step", 11.96, 11.99, d)
     _add(rec, "sched.wait", 11.99, 12.5, d)
     _add(rec, "spec.draft", 12.5, 12.6, graph=1)
+    _add(rec, "spec.verify", 12.6, 12.7, graph=1)
 
 
 # self time: loop a 0.5 - 0.1 - 0.1 - 0.25, loop b 0, loop c 0.4 - 0.3,
@@ -250,6 +252,8 @@ HAND = {"draft_ms.chat": 57.5, "verify_ms.chat": 37.5, "sync_wait_ms.chat": 3.0,
         "insert_ms.longdoc": 200.0,
         # one of the window's two draft passes replayed the graph
         "draft_graph_share.chat": 50.0, "draft_graph_share.longdoc": 50.0,
+        # and the other of its two verify passes the verify graph
+        "verify_graph_share.chat": 50.0, "verify_graph_share.longdoc": 50.0,
         # K2: q (1, 1, 1, 64) at position 3 of 8 slots: 4 keys, q and o once,
         # K and V of 4 keys, 2 bytes each: 1280 bytes in 10 ns
         "k2_roofline.chat": 1280 / MEM_BYTES_PER_S / 10e-9 * 100,
@@ -298,10 +302,11 @@ def test_reader_is_none_once_the_ring_lost_window_spans(name, hand_made, monkeyp
     assert catalog.load_module("metrics", name).read(run) is None
 
 
-@pytest.mark.parametrize("name", ["draft_graph_share.chat", "draft_graph_share.longdoc"])
+@pytest.mark.parametrize("name", ["draft_graph_share.chat", "draft_graph_share.longdoc",
+                                  "verify_graph_share.chat", "verify_graph_share.longdoc"])
 def test_graph_share_is_none_without_the_graph_attribute(name, hand_made):
-    """A program whose draft spans carry no ``graph`` attribute gives no
-    reading, and no error."""
+    """A program whose draft or verify spans carry no ``graph`` attribute
+    gives no reading, and no error."""
     run, rec = hand_made
     for s in rec.spans():
         s.attrs.pop("graph", None)
